@@ -1,0 +1,48 @@
+"""Categorical action head and critic head (the reference's
+``common/utils.py:16-50`` and ``rl/ppo/policy.py:15-23``)."""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+class Categorical:
+    def __init__(self, logits: torch.Tensor):
+        self.logits = logits  # (B, A)
+
+    @property
+    def log_probs_all(self) -> torch.Tensor:
+        return torch.log_softmax(self.logits, dim=-1)
+
+    def probs(self) -> torch.Tensor:
+        return torch.softmax(self.logits, dim=-1)
+
+    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, 1) actions drawn with `generator` (on the logits' device)."""
+        return torch.multinomial(self.probs(), 1, generator=generator)
+
+    def mode(self) -> torch.Tensor:
+        return torch.argmax(self.logits, dim=-1, keepdim=True)  # (B, 1)
+
+    def log_probs(self, actions: torch.Tensor) -> torch.Tensor:
+        """actions (B, 1) int -> (B, 1) log-probabilities."""
+        return torch.gather(self.log_probs_all, -1, actions.long())
+
+
+class CategoricalNet(nn.Module):
+    def __init__(self, num_inputs: int, num_actions: int):
+        super().__init__()
+        self.linear = nn.Linear(num_inputs, num_actions)
+
+    def forward(self, x: torch.Tensor) -> Categorical:
+        return Categorical(self.linear(x))
+
+
+class CriticHead(nn.Module):
+    def __init__(self, num_inputs: int):
+        super().__init__()
+        self.fc = nn.Linear(num_inputs, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)

@@ -1,0 +1,26 @@
+"""Acoustic memory refiner (the reference's ``rl/models/memory_nets.py``):
+concat(sliced pred_mono, sliced masked previous memory prediction) ->
+Conv3x3(32) -> [BatchNorm] -> ReLU -> Conv3x3(16), de-sliced back to
+(B, 512, 32, 1). BatchNorm exists iff not ``use_ddppo``."""
+
+import torch
+from torch import nn
+
+from move2hear_tpu_torch.ops.spec import SLICE_FACTOR, deslice16_nchw, slice16_nchw
+
+
+class AcousticMem(nn.Module):
+    def __init__(self, use_ddppo: bool = False):
+        super().__init__()
+        layers = [nn.Conv2d(2 * SLICE_FACTOR, 32, 3, padding=1, bias=False)]
+        if not use_ddppo:
+            layers.append(nn.BatchNorm2d(32))
+        layers += [nn.ReLU(), nn.Conv2d(32, SLICE_FACTOR, 3, padding=1, bias=False)]
+        self.cnn = nn.Sequential(*layers)
+
+    def forward(self, pred_mono: torch.Tensor, prev_pred_mono_from_mem_masked: torch.Tensor):
+        x = torch.cat(
+            [slice16_nchw(pred_mono), slice16_nchw(prev_pred_mono_from_mem_masked)],
+            dim=1,
+        )
+        return deslice16_nchw(self.cnn(x))

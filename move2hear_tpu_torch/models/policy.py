@@ -1,0 +1,144 @@
+"""The full Move2Hear policy (the reference's ``rl/ppo/policy.py``).
+
+Submodule names mirror the reference (binSep_enc, binSep_dec, bin2mono_enc,
+bin2mono_dec, acoustic_mem, pol_net, action_dist, critic). This port covers
+inference: the separator chain, ``act`` and the visual-feature bank.
+Spectrogram inputs and outputs keep the sensor layout (B, F, T, C).
+"""
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from move2hear_tpu_torch.models.audio_cnn import AudioCNN
+from move2hear_tpu_torch.models.distributions import Categorical, CategoricalNet, CriticHead
+from move2hear_tpu_torch.models.memory import AcousticMem
+from move2hear_tpu_torch.models.rnn import GRUStateEncoder
+from move2hear_tpu_torch.models.unet import PassiveSepDecoder, PassiveSepEncoder
+from move2hear_tpu_torch.models.visual_cnn import VisualCNN
+
+Observations = Dict[str, torch.Tensor]
+
+
+class ActOutput(NamedTuple):
+    value: torch.Tensor
+    action: torch.Tensor
+    action_log_probs: torch.Tensor
+    hidden: torch.Tensor
+    probs: torch.Tensor
+
+
+class PolicyNet(nn.Module):
+    """Visual + bin-audio + mono-audio encoders -> concat -> GRU. A blind
+    agent (both EXTRA_RGB and EXTRA_DEPTH) has no visual encoder and a
+    2*hidden GRU input."""
+
+    def __init__(self, hidden_size: int = 512, extra_rgb: bool = False,
+                 extra_depth: bool = False):
+        super().__init__()
+        blind = extra_rgb and extra_depth
+        self.visual_encoder = (
+            None if blind else VisualCNN(hidden_size, extra_rgb, extra_depth)
+        )
+        self.bin_encoder = AudioCNN(hidden_size)
+        self.monoNmonoFromMem_encoder = AudioCNN(
+            hidden_size, encode_mono_n_mono_from_mem=True
+        )
+        n_feats = 2 if blind else 3
+        self.state_encoder = GRUStateEncoder(n_feats * hidden_size, hidden_size)
+
+    def features(self, observations, pred_binSepMasks, pred_mono, pred_monoFromMem):
+        """A precomputed ``visual_feats`` entry (the evaluator's per-pose
+        feature bank) replaces the visual conv stack."""
+        feats = []
+        if self.visual_encoder is not None:
+            vis = observations.get("visual_feats")
+            if vis is None:
+                if observations.get("rgb") is None and observations.get("depth") is None:
+                    raise ValueError(
+                        "PolicyNet: the visual encoder is not blind but the "
+                        "observations carry no rgb/depth; set EXTRA_RGB and "
+                        "EXTRA_DEPTH for a blind agent"
+                    )
+                vis = self.visual_encoder(
+                    rgb=observations.get("rgb"), depth=observations.get("depth")
+                )
+            feats.append(vis)
+        feats.append(self.bin_encoder(
+            mixed_log_mag=observations["mixed_bin_audio_mag"],
+            pred_bin_sep_masks=pred_binSepMasks,
+        ))
+        feats.append(self.monoNmonoFromMem_encoder(
+            pred_mono_n_mono_from_mem=torch.cat([pred_mono, pred_monoFromMem], dim=-1)
+        ))
+        return torch.cat(feats, dim=-1)
+
+    def forward(self, observations, hidden, masks, pred_binSepMasks, pred_mono,
+                pred_monoFromMem):
+        x = self.features(observations, pred_binSepMasks, pred_mono, pred_monoFromMem)
+        return self.state_encoder(x, hidden, masks)
+
+
+class Move2HearPolicy(nn.Module):
+    """Full agent: policy net + action/critic heads + the five separator
+    modules."""
+
+    def __init__(self, num_actions: int = 4, hidden_size: int = 512,
+                 extra_rgb: bool = False, extra_depth: bool = False,
+                 use_ddppo: bool = False):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.pol_net = PolicyNet(hidden_size, extra_rgb, extra_depth)
+        self.action_dist = CategoricalNet(hidden_size, num_actions)
+        self.critic = CriticHead(hidden_size)
+        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False)
+        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False)
+        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True)
+        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True)
+        self.acoustic_mem = AcousticMem(use_ddppo=use_ddppo)
+
+    def visual_features(self, rgb=None, depth=None) -> torch.Tensor:
+        """Pol-net visual encodings for a batch of poses."""
+        return self.pol_net.visual_encoder(rgb=rgb, depth=depth)
+
+    def get_binSepMasks(self, observations: Observations) -> torch.Tensor:
+        bottleneck, skips = self.binSep_enc(
+            observations["mixed_bin_audio_mag"],
+            target_class=observations["target_class"],
+        )
+        return self.binSep_dec(bottleneck, skips)
+
+    def convert_bin2mono(self, pred_binSepMasks, mixed_audio) -> torch.Tensor:
+        bottleneck, skips = self.bin2mono_enc(
+            mixed_audio, pred_bin_sep_masks=pred_binSepMasks
+        )
+        return self.bin2mono_dec(bottleneck, skips)
+
+    def get_monoFromMem(self, pred_mono, prev_pred_monoFromMem_masked) -> torch.Tensor:
+        return self.acoustic_mem(pred_mono, prev_pred_monoFromMem_masked)
+
+    def act(
+        self,
+        observations: Observations,
+        hidden: torch.Tensor,
+        masks: torch.Tensor,
+        pred_binSepMasks: torch.Tensor,
+        pred_mono: torch.Tensor,
+        pred_monoFromMem: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        deterministic: bool = False,
+    ) -> ActOutput:
+        feats, new_hidden = self.pol_net(
+            observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
+        )
+        dist: Categorical = self.action_dist(feats)
+        value = self.critic(feats)
+        action = dist.mode() if deterministic else dist.sample(generator)
+        return ActOutput(
+            value=value,
+            action=action,
+            action_log_probs=dist.log_probs(action),
+            hidden=new_hidden,
+            probs=dist.probs(),
+        )

@@ -1,0 +1,39 @@
+"""RGB/depth encoder CNN for the policy (the reference's
+``rl/models/visual_cnn.py``): 3 convs (8x8/s4, 4x4/s2, 3x3/s1, no padding,
+channels 32/64/32; ReLU after the first two only) + Linear -> output_size +
+ReLU. RGB is scaled by 1/255; rgb and depth are concatenated on channels.
+``extra_rgb`` / ``extra_depth`` leave a modality out of the encoding.
+Frames arrive NHWC (B, H, W, C), as the frame banks store them."""
+
+import torch
+from torch import nn
+
+
+class VisualCNN(nn.Module):
+    def __init__(
+        self, output_size: int = 512, extra_rgb: bool = False,
+        extra_depth: bool = False, image_size: int = 128,
+    ):
+        super().__init__()
+        self.extra_rgb = extra_rgb
+        self.extra_depth = extra_depth
+        in_ch = (0 if extra_rgb else 3) + (0 if extra_depth else 1)
+        side = ((image_size - 8) // 4 + 1 - 4) // 2 + 1 - 2
+        self.cnn = nn.Sequential(
+            nn.Conv2d(in_ch, 32, 8, stride=4), nn.ReLU(),
+            nn.Conv2d(32, 64, 4, stride=2), nn.ReLU(),
+            nn.Conv2d(64, 32, 3, stride=1),
+            nn.Flatten(),
+            nn.Linear(32 * side * side, output_size), nn.ReLU(),
+        )
+
+    def forward(self, rgb: torch.Tensor = None, depth: torch.Tensor = None):
+        inputs = []
+        if rgb is not None and not self.extra_rgb:
+            inputs.append(rgb.to(torch.float32) / 255.0)
+        if depth is not None and not self.extra_depth:
+            inputs.append(depth.to(torch.float32))
+        if not inputs:
+            raise ValueError("VisualCNN called with no modality to encode")
+        x = torch.cat(inputs, dim=-1).permute(0, 3, 1, 2)
+        return self.cnn(x)

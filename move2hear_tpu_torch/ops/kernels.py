@@ -1,0 +1,167 @@
+"""The audio path's two kernels: hand-written CUDA on the card, plain
+PyTorch on the CPU.
+
+Each public wrapper takes the plain version only for CPU tensors. For CUDA
+tensors it checks device, dtype, shape and contiguity, allocates the output,
+launches the kernel from ``csrc/`` on PyTorch's current stream and raises if
+the launch reports an error; there is no fallback. ``<wrapper>.launches``
+counts the kernel launches, so a run can show that it went through them.
+
+1. ``masked_mix_slice16`` (``csrc/masked_mix_slice16.cu``) replaces
+   ``move2hear_tpu/ops/pallas_kernels.py:_masked_mix_slice16_kernel``.
+   ``log1p(relu(expm1(mix) * mask))`` followed by the 16-way frequency
+   slice; on the card the slice permutation is the kernel's store index and
+   the result is the NCHW tensor the next Conv2d reads. Bound by bytes.
+2. ``overlap_add`` (``csrc/overlap_add.cu``) replaces
+   ``move2hear_tpu/ops/pallas_kernels.py:_ola_kernel``: the ISTFT
+   overlap-add of Hann-windowed frames times the inverse squared-window
+   envelope. Bound by bytes; one thread per output sample, no atomics.
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from move2hear_tpu_torch.ops import build
+from move2hear_tpu_torch.ops.spec import (
+    SLICE_FACTOR, apply_mask_log1p, hann_window, slice16_nchw,
+)
+
+
+def _require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+def _is_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# 1. fused masked-mix + log1p + slice16
+# ---------------------------------------------------------------------------
+
+def masked_mix_slice16_plain(
+    mixed_log_mag: torch.Tensor, mask: torch.Tensor, k: int = SLICE_FACTOR
+) -> torch.Tensor:
+    """The plain version: (B, F, T, C) x (B, F, T, C) -> (B, C*k, F/k, T)."""
+    return slice16_nchw(apply_mask_log1p(mixed_log_mag, mask), k).contiguous()
+
+
+def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, F, T, C) x (B, F, T, C) -> NCHW (B, 16*C, F/16, T) with channel
+    c*16 + chunk: ``slice16(log1p(clamp(expm1(mix) * mask, 0)))``."""
+    if _is_cpu(mixed_log_mag, mask):
+        return masked_mix_slice16_plain(mixed_log_mag, mask)
+    _require_cuda_f32("masked_mix_slice16", mixed_log_mag, mask)
+    if mixed_log_mag.ndim != 4 or mask.shape != mixed_log_mag.shape:
+        raise ValueError(
+            f"masked_mix_slice16: shapes {tuple(mixed_log_mag.shape)} and "
+            f"{tuple(mask.shape)}; expected two equal (B, F, T, C)"
+        )
+    b, f, t, c = mixed_log_mag.shape
+    k = SLICE_FACTOR
+    if f % k:
+        raise ValueError(f"masked_mix_slice16: F={f} is not a multiple of {k}")
+    out = torch.empty((b, c * k, f // k, t), dtype=torch.float32,
+                      device=mixed_log_mag.device)
+    lib = build.load("masked_mix_slice16")
+    with torch.cuda.device(mixed_log_mag.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.masked_mix_slice16_launch(
+            mixed_log_mag.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, f, t, c, k, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"masked_mix_slice16: launch failed, CUDA error {rc}")
+    masked_mix_slice16.launches += 1
+    return out
+
+
+masked_mix_slice16.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2. ISTFT overlap-add
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def ola_tables(n_fft: int, hop: int, n_frames: int, device: str):
+    """(periodic Hann window (n_fft,), inverse squared-window envelope
+    (out_len,)) as float32 on `device`, built once per shape in float64
+    exactly as the JAX package builds them."""
+    win = hann_window(n_fft, dtype=torch.float64).numpy()
+    out_len = n_fft + hop * (n_frames - 1)
+    env = np.zeros(out_len)
+    for s in range(n_frames):
+        env[s * hop : s * hop + n_fft] += win**2
+    tiny = np.finfo(np.float32).tiny
+    inv_env = np.where(env > tiny, 1.0 / np.where(env > tiny, env, 1.0), 1.0)
+    return (
+        torch.tensor(win, dtype=torch.float32, device=device),
+        torch.tensor(inv_env, dtype=torch.float32, device=device),
+    )
+
+
+def overlap_add_plain(
+    frames: torch.Tensor, win: torch.Tensor, inv_env: torch.Tensor, hop: int
+) -> torch.Tensor:
+    """The plain version: frames summed in ascending order, like the kernel."""
+    b, n_frames, n_fft = frames.shape
+    out = frames.new_zeros((b, n_fft + hop * (n_frames - 1)))
+    fr = frames * win
+    for i in range(n_frames):
+        out[:, i * hop : i * hop + n_fft] += fr[:, i]
+    return out * inv_env
+
+
+def overlap_add(frames: torch.Tensor, n_fft: int = 1023, hop: int = 512) -> torch.Tensor:
+    """(B, n_frames, n_fft) irfft frames -> (B, n_fft + hop*(n_frames-1))
+    Hann-windowed overlap-add with squared-window normalization (the core
+    of librosa.istft)."""
+    if frames.ndim != 3 or frames.shape[-1] != n_fft:
+        raise ValueError(
+            f"overlap_add: frames {tuple(frames.shape)}; expected (B, n, {n_fft})"
+        )
+    b, n_frames, _ = frames.shape
+    win, inv_env = ola_tables(n_fft, hop, n_frames, str(frames.device))
+    if _is_cpu(frames):
+        return overlap_add_plain(frames, win, inv_env, hop)
+    _require_cuda_f32("overlap_add", frames)
+    out_len = n_fft + hop * (n_frames - 1)
+    out = torch.empty((b, out_len), dtype=torch.float32, device=frames.device)
+    lib = build.load("overlap_add")
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.overlap_add_launch(
+            frames.data_ptr(), win.data_ptr(), inv_env.data_ptr(),
+            out.data_ptr(), b, n_frames, n_fft, hop, out_len, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"overlap_add: launch failed, CUDA error {rc}")
+    overlap_add.launches += 1
+    return out
+
+
+overlap_add.launches = 0
+
+
+KERNEL_WRAPPERS = {"masked_mix_slice16": masked_mix_slice16, "overlap_add": overlap_add}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
