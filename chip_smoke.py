@@ -5,17 +5,21 @@
 
 Phases, each printing its own line(s) with its seconds:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: both CUDA kernels from move2hear_tpu_torch/csrc/ (nvcc, in
-     parallel), with ptxas registers and spills;
-  3. kernels at the eval path's shapes (16 envs): max abs error against the
-     plain PyTorch version on the card, kernel and plain device times (CUDA
-     events around CUDA-graph replays over inputs that overflow the L2), the
-     per-call time when issued from Python, and the least time the card's
-     memory rate allows;
+  2. build: the CUDA sources of move2hear_tpu_torch/csrc/ (both kernels
+     and the empty kernel of the launch floor; nvcc, in parallel), with
+     ptxas registers and spills;
+  3. kernels: each against its plain PyTorch version on the card at the
+     eval path's shapes and at edge shapes (small and ragged sizes, a view
+     with a storage offset; overlap_add bitwise), then, at the path's
+     shapes, kernel and plain device times (CUDA events around CUDA-graph
+     replays; L2-cold over input copies that overflow the L2, and L2-hot
+     over one input set), the time of an empty kernel of the same grid in
+     the same harness (the launch floor), the per-call time when issued
+     from Python, and the least time the card's memory rate allows;
   4. slice: ``move2hear_tpu_torch.main --run-type eval`` with
      configs/test/nearTarget.yaml at full width (hidden 512, 64 micro-scene
      episodes, 16 envs, seeded random weights), cold then warm; the launch
-     counters must read 160 and 400 after the run;
+     counters must read 160 and 80 after the run;
   5. parity: a short eval on the card (TF32 off) against the same eval on
      the CPU's plain path: equal deterministic actions, STFT-L2 and SI-SDR
      within tolerance;
@@ -44,7 +48,34 @@ REPLACES = {
     "masked_mix_slice16": "move2hear_tpu/ops/pallas_kernels.py:85",
     "overlap_add": "move2hear_tpu/ops/pallas_kernels.py:186",
 }
-PATH_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 400}
+PATH_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 80}
+# Shapes each kernel is held to on the card. The first is the eval path's
+# (one launch per separator call at 16 envs; the step's five ISTFTs of 16
+# envs in one trimmed overlap-add). masked_mix_slice16: (B, F, T, C, storage
+# offset in floats); overlap_add: (B, n_frames, n_fft, hop, start, length or
+# None for the whole signal, storage offset in floats).
+MM_CASES = {
+    "path": (16, 512, 32, 2, 0),
+    "B=1": (1, 512, 32, 2, 0),
+    "C=1": (2, 512, 32, 1, 0),
+    "C=3": (2, 64, 8, 3, 0),
+    "F=16": (2, 16, 32, 2, 0),
+    "T=1": (2, 512, 1, 2, 0),
+    "T=6": (2, 512, 6, 2, 0),
+    "T=33": (2, 512, 33, 2, 0),
+    "offset1": (4, 512, 32, 2, 1),
+}
+OLA_CASES = {
+    "path": (80, 32, 1023, 512, 511, 16000, 0),
+    "B=16-whole": (16, 32, 1023, 512, 0, None, 0),
+    "B=1": (1, 32, 1023, 512, 511, 16000, 0),
+    "one-frame": (2, 1, 1023, 512, 0, None, 0),
+    "hop200": (2, 10, 1023, 200, 100, 1901, 0),
+    "odd-out-len": (2, 5, 1023, 512, 0, None, 0),
+    "length-16001": (3, 32, 1023, 512, 511, 16001, 0),
+    "hop3": (2, 9, 8, 3, 5, 23, 0),
+    "offset1": (16, 32, 1023, 512, 511, 16000, 1),
+}
 
 
 def fail(msg: str):
@@ -108,70 +139,173 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def kernel_phase(torch, kernels, F):
-    """Phase 3: error, times and bound of each kernel at the path's shapes."""
+def on_card(torch, array, offset: int):
+    """`array` as a contiguous float32 CUDA tensor whose data starts `offset`
+    floats into its storage (offset 1: not on a 16-byte boundary)."""
+    buf = torch.empty(array.size + offset, dtype=torch.float32, device="cuda")
+    out = buf[offset:].view(array.shape)
+    out.copy_(torch.from_numpy(array.astype("float32")))
+    return out
+
+
+def mm_inputs(torch, case, seed=SEED):
+    """(mix, mask) of a MM_CASES shape, from a numpy seed."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
-    mix = torch.tensor(np.abs(rng.standard_normal((16, 512, 32, 2))), dtype=torch.float32, device=dev)
-    mask = torch.tensor(rng.uniform(-0.5, 1.5, (16, 512, 32, 2)), dtype=torch.float32, device=dev)
-    frames = torch.tensor(rng.standard_normal((16, 32, 1023)), dtype=torch.float32, device=dev)
-    win, inv_env = kernels.ola_tables(1023, 512, 32, str(dev))
-    out_len = 1023 + 512 * 31
+    b, f, t, c, offset = case
+    rng = np.random.default_rng(seed)
+    mix = np.abs(rng.standard_normal((b, f, t, c)))
+    mask = rng.uniform(-0.5, 1.5, (b, f, t, c))
+    return on_card(torch, mix, offset), on_card(torch, mask, offset)
 
-    mm_bytes = 3 * mix.numel() * 4                      # 2 inputs read, 1 output written
-    mm_ops = 4 * mix.numel()                            # expm1, mul, max, log1p
-    ola_bytes = (frames.numel() + win.numel() + inv_env.numel() + 16 * out_len) * 4
-    ola_ops = 2 * frames.numel() + 16 * out_len         # window mul + add, envelope mul
-    plain_ola = functools.partial(kernels.overlap_add_plain, win=win, inv_env=inv_env, hop=512)
-    cases = {  # kernel, plain version, inputs, bytes, operations
-        "masked_mix_slice16": (
-            kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain,
-            (mix, mask), mm_bytes, mm_ops,
-        ),
-        "overlap_add": (kernels.overlap_add, plain_ola, (frames,), ola_bytes, ola_ops),
-    }
-    rows = {}
-    for name, (kern, plain, args, nbytes, nops) in cases.items():
-        t0 = time.perf_counter()
-        err = float((kern(*args) - plain(*args)).abs().max())
+
+def ola_inputs(torch, case, seed=SEED):
+    """(frames,) of an OLA_CASES shape, from a numpy seed."""
+    import numpy as np
+
+    b, n_frames, n_fft, _, _, _, offset = case
+    frames = np.random.default_rng(seed).standard_normal((b, n_frames, n_fft))
+    return (on_card(torch, frames, offset),)
+
+
+def ola_call(kernels, case, plain=False):
+    """overlap_add (or its plain version) at an OLA_CASES shape."""
+    b, n_frames, n_fft, hop, start, length, _ = case
+    if not plain:
+        return functools.partial(kernels.overlap_add, n_fft=n_fft, hop=hop, start=start, length=length)
+    win, inv_env = kernels.ola_tables(n_fft, hop, n_frames, "cuda")
+    return functools.partial(kernels.overlap_add_plain, win=win, inv_env=inv_env, hop=hop,
+                             start=start, length=length)
+
+
+def ola_work(case):
+    """(bytes, float operations, blocks, threads) of an overlap_add call:
+    the frame samples the kept output needs, the window and envelope once,
+    the output once; the grid as csrc/overlap_add.cu launches it."""
+    b, n_frames, n_fft, hop, start, length, _ = case
+    if length is None:
+        length = n_fft + hop * (n_frames - 1) - start
+    needed = sum(max(0, min(i * hop + n_fft, start + length) - max(i * hop, start))
+                 for i in range(n_frames))
+    nbytes = (b * needed + n_fft + length + b * length) * 4
+    blocks = -(-((length + 6) // 4) // 128) * b
+    return nbytes, 2 * b * needed + b * length, blocks, 128
+
+
+def mm_work(case):
+    """(bytes, float operations, blocks, threads) of a masked_mix_slice16
+    call: two inputs read, one output written, expm1, mul, max and log1p per
+    element; the grid as csrc/masked_mix_slice16.cu launches it."""
+    b, f, t, c, offset = case
+    n = b * f * t * c
+    c2 = c == 2 and t % 2 == 0 and offset == 0  # the float4 kernel
+    tx = min(t // 2 if c2 else t, 32)
+    ty = 256 // tx
+    return 3 * n * 4, 4 * n, -(-(f // 16) // ty) * 16 * b, tx * ty
+
+
+def check_phase(torch, kernels):
+    """Phase 3a: every kernel against its plain version at every case shape.
+    Returns {kernel: max abs error at the path shape}."""
+    errs = {}
+    for label, case in MM_CASES.items():
+        args = mm_inputs(torch, case)
+        err = float((kernels.masked_mix_slice16(*args) - kernels.masked_mix_slice16_plain(*args)).abs().max())
         torch.cuda.synchronize()
         if not err <= KERNEL_TOL:
-            fail(f"{name}: max abs error {err} against the plain version > {KERNEL_TOL}")
+            fail(f"masked_mix_slice16 {label} {case}: max abs error {err} > {KERNEL_TOL}")
+        errs.setdefault("masked_mix_slice16", err)
+        print(f"check masked_mix_slice16 {label} {case[:4]} offset {case[4]}: max abs err {err:.3e}", flush=True)
+    for label, case in OLA_CASES.items():
+        args = ola_inputs(torch, case)
+        out, ref = ola_call(kernels, case)(*args), ola_call(kernels, case, plain=True)(*args)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            err = float((out - ref).abs().max()) if out.shape == ref.shape else math.inf
+            fail(f"overlap_add {label} {case}: not bitwise equal to the plain version (max abs err {err})")
+        errs.setdefault("overlap_add", 0.0)
+        print(f"check overlap_add {label} {case[:6]} offset {case[6]}: bitwise equal", flush=True)
+    return errs
+
+
+def time_phase(torch, kernels, errs):
+    """Phase 3b: times and bounds at the path's shapes (and overlap_add at
+    the whole-signal B=16 shape it was first timed at). Returns the JSON rows, one per kernel,
+    at the path's shapes."""
+    empty = build_empty()
+    timed = [  # name, label, kernel, plain, inputs, work
+        ("masked_mix_slice16", "path", kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain,
+         mm_inputs(torch, MM_CASES["path"]), mm_work(MM_CASES["path"])),
+        ("overlap_add", "path", ola_call(kernels, OLA_CASES["path"]),
+         ola_call(kernels, OLA_CASES["path"], plain=True),
+         ola_inputs(torch, OLA_CASES["path"]), ola_work(OLA_CASES["path"])),
+        ("overlap_add", "B=16-whole", ola_call(kernels, OLA_CASES["B=16-whole"]),
+         ola_call(kernels, OLA_CASES["B=16-whole"], plain=True),
+         ola_inputs(torch, OLA_CASES["B=16-whole"]), ola_work(OLA_CASES["B=16-whole"])),
+    ]
+    rows = {}
+    for name, label, kern, plain, args, (nbytes, nops, blocks, threads) in timed:
+        t0 = time.perf_counter()
         copies = l2_cold_copies(*args)
         ms, plain_ms = device_ms(kern, copies), device_ms(plain, copies)
+        hot_ms = device_ms(kern, [args])
+        floor_ms = device_ms(lambda: empty(blocks, threads), [()])
         eager, eager_plain = eager_ms(lambda: kern(*args)), eager_ms(lambda: plain(*args))
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": f"move2hear_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            # no one PyTorch call computes either function
-            "library_ms": None,
-        }
+        bound = max(t_bytes, t_ops)
+        if label == "path":
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": f"move2hear_tpu_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": None, "max_abs_err": errs[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                # no one PyTorch call computes either function
+                "library_ms": None,
+            }
         extra = ""
-        if name == "overlap_add":
+        if name == "overlap_add" and label == "B=16-whole":
             # F.fold sums the frames: the overlap-add without window and envelope
+            out_len = 1023 + 512 * 31
             fold_ms = device_ms(
-                lambda fr: F.fold(fr.transpose(1, 2), (1, out_len), (1, 1023), stride=(1, 512)),
+                lambda fr: torch.nn.functional.fold(
+                    fr.transpose(1, 2), (1, out_len), (1, 1023), stride=(1, 512)),
                 copies,
             )
             extra = f"; F.fold sum alone (no window, no envelope) {fold_ms * 1e3:.2f} us"
         phase("kernel", t0, (
-            f"{name}: max_abs_err {err:.3e} (tol {KERNEL_TOL}); B=16 kernel "
-            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-            f"{rows[name]['bound_ms'] * 1e3:.2f} us ({rows[name]['bound_by']}, {nbytes} B){extra}; "
-            f"device times from CUDA-graph replay over {len(copies)} input copies (L2-cold); "
-            f"issued from Python {eager * 1e3:.2f} us, plain {eager_plain * 1e3:.2f} us per call"
+            f"{name} {label} {tuple(args[0].shape)}: L2-cold {ms * 1e3:.2f} us "
+            f"({len(copies)} input copies), L2-hot {hot_ms * 1e3:.2f} us, plain L2-cold "
+            f"{plain_ms * 1e3:.2f} us, empty kernel of the same grid ({blocks} x {threads}) "
+            f"{floor_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'}, {nbytes} B), "
+            f"{100 * bound / ms:.1f}% of the bound{extra}; issued from Python "
+            f"{eager * 1e3:.2f} us, plain {eager_plain * 1e3:.2f} us per call"
         ))
     return rows
 
 
-def slice_phase(torch, kernels, card, run_dir):
-    """Phase 4: the eval CLI at full width, cold then warm."""
+def build_empty():
+    """The launch floor: a callable launching csrc/empty.cu's empty kernel
+    with (blocks, threads) on the current stream."""
+    import torch
+
+    from move2hear_tpu_torch.ops import build
+
+    fn = build.load("empty").empty_launch
+
+    def launch(blocks, threads):
+        rc = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"empty kernel: launch failed, CUDA error {rc}")
+
+    return launch
+
+
+def run_eval(torch, kernels, run_dir, runs: int):
+    """The eval CLI at full width `runs` times in one process, each with the
+    launch counters set to 0 just before it. Returns [(launch counts, timing
+    dict, wall s, aggregates)] and the stats path the runs wrote."""
     from move2hear_tpu_torch.config import get_config
     from move2hear_tpu_torch.main import main as port_main
     from move2hear_tpu_torch.models import Move2HearPolicy
@@ -188,14 +322,22 @@ def slice_phase(torch, kernels, card, run_dir):
     save_checkpoint(ckpt, {"state_dict": policy.state_dict(), "config": cfg.to_dict()})
     argv = ["--run-type", "eval", "--exp-config", exp, "--model-dir", run_dir,
             "EVAL_CKPT_PATH_DIR", ckpt]
-    for run in ("cold", "warm"):
+    results = []
+    for _ in range(runs):
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
         trainer = port_main(argv)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        wall = time.perf_counter() - t0
-        agg, tm = trainer.last_eval
+        results.append((counts, trainer.last_eval[1], time.perf_counter() - t0, trainer.last_eval[0]))
+    return results, os.path.join(run_dir, f"{cfg.EVAL.SPLIT}_stats_ckpt_0_{cfg.SEED}.json")
+
+
+def slice_phase(torch, kernels, card, run_dir):
+    """Phase 4: the eval CLI at full width, cold then warm."""
+    t0 = time.perf_counter()
+    results, stats = run_eval(torch, kernels, run_dir, 2)
+    for run, (counts, tm, wall, agg) in zip(("cold", "warm"), results):
         if counts != PATH_LAUNCHES:
             fail(f"main-path kernel launches {counts}, expected {PATH_LAUNCHES}")
         phase("slice", t0, (
@@ -207,7 +349,6 @@ def slice_phase(torch, kernels, card, run_dir):
     for k in ("mono_l2_last", "mem_l2_last", "mono_si_sdr_last", "monoFromMem_si_sdr_last"):
         if k not in agg or not all(math.isfinite(v) for v in agg[k].values()):
             fail(f"aggregate {k} missing or not finite: {agg.get(k)}")
-    stats = os.path.join(run_dir, f"{cfg.EVAL.SPLIT}_stats_ckpt_0_{cfg.SEED}.json")
     if not os.path.exists(stats) or tm["episodes"] != 64:
         fail(f"eval wrote no {stats} or played {tm['episodes']} episodes, not 64")
     print("slice aggregates: " + ", ".join(
@@ -273,8 +414,6 @@ def main():
     if not os.path.isdir(os.path.join(REPO, "move2hear_tpu_torch")):
         fail(f"no move2hear_tpu_torch package beside {__file__}")
     sys.path.insert(0, REPO)
-    import torch.nn.functional as F
-
     from move2hear_tpu_torch.ops import build, kernels
 
     t0 = time.perf_counter()
@@ -301,9 +440,9 @@ def main():
         for line in build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    phase("build", t0, f"{len(build.SIGNATURES)} kernels built by nvcc in {secs:.2f} s")
+    phase("build", t0, f"{len(build.SIGNATURES)} CUDA sources built by nvcc in {secs:.2f} s")
 
-    rows = kernel_phase(torch, kernels, F)
+    rows = time_phase(torch, kernels, check_phase(torch, kernels))
     run_dir = os.path.join(REPO, "_smoke_run")
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)

@@ -11,47 +11,104 @@
 // store index, so the whole op is one pass over memory.
 //
 // Bound: bytes. Each element does two loads and one store of 4 bytes and a
-// few transcendentals, far below the card's compute-to-bandwidth ratio. The
-// design keeps one thread per (b, f, t) position: its C channel values are
-// adjacent in memory (one 8-byte run for C = 2, contiguous across the warp),
-// and its C stores land in C rows of the output where neighbouring threads
-// (neighbouring t) write neighbouring addresses, so loads and stores both
-// coalesce. No shared memory, no atomics.
+// few transcendentals, below the card's compute-to-bandwidth ratio. At the
+// eval path's size (0.5 M elements, 6 MB) a launch is short enough that its
+// instruction count and ramp-up count as much as its bytes, so the design
+// spends few instructions per byte:
+// - a 3-D grid, blockIdx.z the batch b and blockIdx.y the frequency chunk,
+//   threadIdx.y (with blockIdx.x) the row f' within the chunk: every index
+//   comes from the grid, with no divide;
+// - one (b, f) input row is T*C contiguous floats (64 = 256 bytes on the
+//   path, C = 2). A thread takes one float4 of it from each input, the 2
+//   channels of 2 time steps, splits the channels in registers and writes
+//   one float2 of 2 time steps into each of the 2 output rows
+//   (b, c*K + chunk, f', :), each T contiguous floats;
+// - expm1f and log1pf stay the accurate library functions, not the __expf
+//   intrinsics, so the result stays within float32 rounding of the plain
+//   version.
+// The launcher takes that float4 kernel when C is 2, T is even and both
+// inputs start on a 16-byte boundary; otherwise (a view with a storage
+// offset, an odd T, another C) the scalar kernel, one thread per (b, f, t)
+// and the same arithmetic.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-__global__ void masked_mix_slice16_kernel(
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float masked_log1p(float x, float m) {
+  return log1pf(fmaxf(expm1f(x) * m, 0.0f));
+}
+
+// C = 2 and every row of both inputs on a 16-byte boundary: thread x of a
+// row loads float4 number x of it, time steps 2x and 2x + 1.
+__global__ void __launch_bounds__(kThreads) masked_mix_slice16_c2_kernel(
     const float* __restrict__ mix, const float* __restrict__ mask,
-    float* __restrict__ out, int B, int F, int T, int C, int K) {
-  const long long n = (long long)B * F * T;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int t = (int)(idx % T);
-  const long long bf = idx / T;
-  const int f = (int)(bf % F);
-  const int b = (int)(bf / F);
-  const int fk = F / K;
-  const int chunk = f / fk;
-  const int fp = f - chunk * fk;
-  const float* mx = mix + idx * C;
-  const float* mk = mask + idx * C;
-  for (int c = 0; c < C; ++c) {
-    const float u = expm1f(mx[c]) * mk[c];
-    const float y = log1pf(fmaxf(u, 0.0f));
-    const long long ch = (long long)b * C * K + (long long)c * K + chunk;
-    out[(ch * fk + fp) * T + t] = y;
+    float* __restrict__ out, int F, int T, int K, int fk) {
+  const int fp = blockIdx.x * blockDim.y + threadIdx.y;
+  if (fp >= fk) return;
+  const int chunk = blockIdx.y, b = blockIdx.z;
+  const int row = (b * F + chunk * fk + fp) * T * 2;
+  const float4* mx = reinterpret_cast<const float4*>(mix + row);
+  const float4* mk = reinterpret_cast<const float4*>(mask + row);
+  float* o = out + ((b * 2 * K + chunk) * fk + fp) * T;  // channel c = 0
+  const int c_stride = K * fk * T;  // output channel chunk to K + chunk
+  for (int v = threadIdx.x; v < T / 2; v += blockDim.x) {
+    const float4 a = mx[v], e = mk[v];  // (t c0, t c1, t+1 c0, t+1 c1)
+    const int t = 2 * v;
+    *reinterpret_cast<float2*>(o + t) =
+        make_float2(masked_log1p(a.x, e.x), masked_log1p(a.z, e.z));
+    *reinterpret_cast<float2*>(o + c_stride + t) =
+        make_float2(masked_log1p(a.y, e.y), masked_log1p(a.w, e.w));
   }
 }
 
+// Any C and T, any 4-byte aligned pointers: one thread per (b, f, t).
+__global__ void __launch_bounds__(kThreads) masked_mix_slice16_scalar_kernel(
+    const float* __restrict__ mix, const float* __restrict__ mask,
+    float* __restrict__ out, int F, int T, int C, int K, int fk) {
+  const int fp = blockIdx.x * blockDim.y + threadIdx.y;
+  if (fp >= fk) return;
+  const int chunk = blockIdx.y, b = blockIdx.z;
+  const int row = (b * F + chunk * fk + fp) * T * C;
+  float* o = out + ((b * C * K + chunk) * fk + fp) * T;
+  const int c_stride = K * fk * T;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    for (int c = 0; c < C; ++c) {
+      o[c * c_stride + t] = masked_log1p(mix[row + t * C + c], mask[row + t * C + c]);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+}  // namespace
+
+// The wrapper (ops/kernels.py) has checked that F is a multiple of K,
+// B <= 65535 and that B * F * T * C fits in a 32-bit int.
 extern "C" int masked_mix_slice16_launch(const void* mix, const void* mask,
                                          void* out, int B, int F, int T,
                                          int C, int K, void* stream) {
-  const long long n = (long long)B * F * T;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  masked_mix_slice16_kernel<<<(unsigned int)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(
-      (const float*)mix, (const float*)mask, (float*)out, B, F, T, C, K);
+  if (B == 0 || F == 0 || T == 0 || C == 0) return 0;
+  const int fk = F / K;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* a = (const float*)mix;
+  const float* m = (const float*)mask;
+  float* y = (float*)out;
+  const bool c2 = C == 2 && T % 2 == 0 && aligned16(mix) && aligned16(mask) &&
+                  aligned16(out);
+  // threadIdx.x walks a row (float4s or time steps), threadIdx.y the rows f'
+  const int row_threads = c2 ? T / 2 : T;
+  const int tx = row_threads < 32 ? row_threads : 32;
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid((fk + ty - 1) / ty, K, B);
+  if (c2) {
+    masked_mix_slice16_c2_kernel<<<grid, block, 0, s>>>(a, m, y, F, T, K, fk);
+  } else {
+    masked_mix_slice16_scalar_kernel<<<grid, block, 0, s>>>(a, m, y, F, T, C, K, fk);
+  }
   return (int)cudaGetLastError();
 }

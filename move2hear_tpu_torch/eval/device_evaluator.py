@@ -196,13 +196,15 @@ def make_device_eval(
 
             if compute_waveform_metrics:
                 gm = obs["gt_mono_comps"]
-                gt_sig = istft_mag_phase(gm[..., 0], gm[..., 1])
-                mono_sig = istft_mag_phase(mono[..., 0], gm[..., 1])
-                mem_sig = istft_mag_phase(mem[..., 0], gm[..., 1])
                 mix_lin = torch.expm1(obs["mixed_bin_audio_mag"])
                 phase = rendered.mixed_bin_audio_phase
-                mix_l = istft_mag_phase(mix_lin[..., 0], phase[..., 0])
-                mix_r = istft_mag_phase(mix_lin[..., 1], phase[..., 1])
+                # the step's five ISTFTs as one batch: one irfft, one overlap_add
+                gt_sig, mono_sig, mem_sig, mix_l, mix_r = istft_mag_phase(
+                    torch.stack((gm[..., 0], mono[..., 0], mem[..., 0],
+                                 mix_lin[..., 0], mix_lin[..., 1])),
+                    torch.stack((gm[..., 1], gm[..., 1], gm[..., 1],
+                                 phase[..., 0], phase[..., 1])),
+                )
                 mix_sig = 0.5 * (
                     (mix_l - mix_l.mean(-1, keepdim=True))
                     + (mix_r - mix_r.mean(-1, keepdim=True))

@@ -31,8 +31,12 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each kernel's launcher; the stream is the last argument
 SIGNATURES = {
+    # mix, mask, out, B, F, T, C, K
     "masked_mix_slice16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # frames, win, inv_env, out, B, n_frames, n_fft, hop, start, length
+    "overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # blocks, threads: the launch floor chip_smoke.py measures, on no path
+    "empty": (_I, _I, _P),
 }
 
 _LOCK = threading.Lock()

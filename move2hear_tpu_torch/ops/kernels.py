@@ -15,7 +15,12 @@ counts the kernel launches, so a run can show that it went through them.
 2. ``overlap_add`` (``csrc/overlap_add.cu``) replaces
    ``move2hear_tpu/ops/pallas_kernels.py:_ola_kernel``: the ISTFT
    overlap-add of Hann-windowed frames times the inverse squared-window
-   envelope. Bound by bytes; one thread per output sample, no atomics.
+   envelope, optionally only the samples ``[start, start + length)`` that
+   the ISTFT keeps. Bound by bytes; each thread gathers 4 consecutive output
+   samples from their covering frames in ascending order, no atomics.
+
+Both kernels index in 32 bits and put the batch on a grid dimension, so the
+wrappers refuse tensors of 2**31 elements or more and batches over 65535.
 """
 
 import functools
@@ -46,6 +51,17 @@ def _is_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+_MAX_GRID_Y_Z = 65535
+
+
+def _require_int32_grid(name: str, batch: int, *numels: int) -> None:
+    if batch > _MAX_GRID_Y_Z or max(numels) >= 2**31:
+        raise ValueError(
+            f"{name}: batch {batch} or sizes {numels} exceed the kernel's "
+            f"limits ({_MAX_GRID_Y_Z} rows, 32-bit indexing)"
+        )
+
+
 # ---------------------------------------------------------------------------
 # 1. fused masked-mix + log1p + slice16
 # ---------------------------------------------------------------------------
@@ -72,6 +88,7 @@ def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch
     k = SLICE_FACTOR
     if f % k:
         raise ValueError(f"masked_mix_slice16: F={f} is not a multiple of {k}")
+    _require_int32_grid("masked_mix_slice16", b, mixed_log_mag.numel())
     out = torch.empty((b, c * k, f // k, t), dtype=torch.float32,
                       device=mixed_log_mag.device)
     lib = build.load("masked_mix_slice16")
@@ -113,38 +130,55 @@ def ola_tables(n_fft: int, hop: int, n_frames: int, device: str):
 
 
 def overlap_add_plain(
-    frames: torch.Tensor, win: torch.Tensor, inv_env: torch.Tensor, hop: int
+    frames: torch.Tensor, win: torch.Tensor, inv_env: torch.Tensor, hop: int,
+    start: int = 0, length: int | None = None,
 ) -> torch.Tensor:
-    """The plain version: frames summed in ascending order, like the kernel."""
+    """The plain version: output samples ``[start, start + length)`` (default
+    all), each frame added in ascending order like the kernel."""
     b, n_frames, n_fft = frames.shape
-    out = frames.new_zeros((b, n_fft + hop * (n_frames - 1)))
+    if length is None:
+        length = n_fft + hop * (n_frames - 1) - start
+    out = frames.new_zeros((b, length))
     fr = frames * win
     for i in range(n_frames):
-        out[:, i * hop : i * hop + n_fft] += fr[:, i]
-    return out * inv_env
+        lo, hi = max(i * hop, start), min(i * hop + n_fft, start + length)
+        if lo < hi:
+            out[:, lo - start : hi - start] += fr[:, i, lo - i * hop : hi - i * hop]
+    return out * inv_env[start : start + length]
 
 
-def overlap_add(frames: torch.Tensor, n_fft: int = 1023, hop: int = 512) -> torch.Tensor:
-    """(B, n_frames, n_fft) irfft frames -> (B, n_fft + hop*(n_frames-1))
-    Hann-windowed overlap-add with squared-window normalization (the core
-    of librosa.istft)."""
+def overlap_add(
+    frames: torch.Tensor, n_fft: int = 1023, hop: int = 512,
+    start: int = 0, length: int | None = None,
+) -> torch.Tensor:
+    """(B, n_frames, n_fft) irfft frames -> (B, length) samples ``[start,
+    start + length)`` of the Hann-windowed overlap-add with squared-window
+    normalization (the core of librosa.istft). By default the whole
+    ``n_fft + hop*(n_frames-1)`` samples, as the TPU kernel computes."""
     if frames.ndim != 3 or frames.shape[-1] != n_fft:
         raise ValueError(
             f"overlap_add: frames {tuple(frames.shape)}; expected (B, n, {n_fft})"
         )
     b, n_frames, _ = frames.shape
+    out_len = n_fft + hop * (n_frames - 1)
+    if length is None:
+        length = out_len - start
+    if start < 0 or length < 0 or start + length > out_len:
+        raise ValueError(
+            f"overlap_add: samples [{start}, {start + length}) outside [0, {out_len})"
+        )
     win, inv_env = ola_tables(n_fft, hop, n_frames, str(frames.device))
     if _is_cpu(frames):
-        return overlap_add_plain(frames, win, inv_env, hop)
+        return overlap_add_plain(frames, win, inv_env, hop, start, length)
     _require_cuda_f32("overlap_add", frames)
-    out_len = n_fft + hop * (n_frames - 1)
-    out = torch.empty((b, out_len), dtype=torch.float32, device=frames.device)
+    _require_int32_grid("overlap_add", b, frames.numel(), b * length)
+    out = torch.empty((b, length), dtype=torch.float32, device=frames.device)
     lib = build.load("overlap_add")
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.overlap_add_launch(
             frames.data_ptr(), win.data_ptr(), inv_env.data_ptr(),
-            out.data_ptr(), b, n_frames, n_fft, hop, out_len, stream,
+            out.data_ptr(), b, n_frames, n_fft, hop, start, length, stream,
         )
     if rc != 0:
         raise RuntimeError(f"overlap_add: launch failed, CUDA error {rc}")

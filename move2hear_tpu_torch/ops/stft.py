@@ -71,14 +71,14 @@ def istft(
 ) -> torch.Tensor:
     """Inverse STFT with librosa semantics: complex (..., n_freq, n_frames)
     -> real (..., length)."""
-    lead = spec.shape[:-2]
+    lead, n_frames = spec.shape[:-2], spec.shape[-1]
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
     frames = frames.reshape(-1, *frames.shape[-2:]).contiguous()
-    sig = overlap_add(frames, n_fft=n_fft, hop=hop_length)
-    if center:
-        sig = sig[:, n_fft // 2 :]
-    sig = sig[:, :length]
-    return sig.reshape(*lead, sig.shape[-1])
+    start = n_fft // 2 if center else 0
+    # the overlap-add writes only the kept samples: no trim pass follows
+    length = min(length, n_fft + hop_length * (n_frames - 1) - start)
+    sig = overlap_add(frames, n_fft=n_fft, hop=hop_length, start=start, length=length)
+    return sig.reshape(*lead, length)
 
 
 def istft_mag_phase(

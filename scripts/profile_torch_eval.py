@@ -9,8 +9,9 @@ evaluator up exactly as ``--run-type eval`` does (`setup_device_eval`).
 Runs the first batch of envs over the episode horizon once to warm up, once
 unprofiled (the loop time), then under torch.profiler. Prints the card, the
 device's busy share of the unprofiled loop (summed kernel and copy time over
-loop time) and device time by kernel family, and one JSON line with the
-same numbers. Fails without a GPU.
+loop time) and device time by kernel family with its event count (for the
+two hand-written kernels, their launches and time per launch on the path),
+and one JSON line with the same numbers. Fails without a GPU.
 """
 
 import argparse
@@ -83,7 +84,7 @@ def main():
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
-    per_bucket, total_us, n_events = {}, 0.0, 0
+    per_bucket, per_bucket_n, total_us, n_events = {}, {}, 0.0, 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -94,6 +95,7 @@ def main():
         total_us += us
         b = bucket(evt.name)
         per_bucket[b] = per_bucket.get(b, 0.0) + us
+        per_bucket_n[b] = per_bucket_n.get(b, 0) + 1
     env_steps = setup.n_envs * setup.max_steps
     busy = total_us * 1e-6 / loop_s
     print(card)
@@ -103,11 +105,13 @@ def main():
           f"env-steps/s); device time {total_us / 1e3:.2f} ms in {n_events} events "
           f"= busy {100 * busy:.1f}% of the unprofiled loop")
     for b, us in sorted(per_bucket.items(), key=lambda kv: -kv[1]):
-        print(f"  {b:20s} {us / 1e3:9.3f} ms  {100 * us / max(total_us, 1e-9):5.1f}%")
+        print(f"  {b:20s} {us / 1e3:9.3f} ms  {100 * us / max(total_us, 1e-9):5.1f}%  "
+              f"{per_bucket_n[b]} events, {us / per_bucket_n[b]:.3f} us each")
     print(json.dumps({
         "card": card, "env_steps": env_steps, "loop_s": loop_s,
         "device_ms": total_us / 1e3, "busy_share": busy,
         "buckets_ms": {b: us / 1e3 for b, us in per_bucket.items()},
+        "buckets_events": per_bucket_n,
     }))
 
 

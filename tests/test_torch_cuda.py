@@ -2,14 +2,17 @@
 card. A CUDA kernel has no CPU mode, so these tests skip on machines
 without a GPU; on the GPU machine run them with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
-This file imports no JAX: the GPU machine does not have it."""
+(``--noconftest``: tests/conftest.py imports JAX, which the GPU machine
+does not have; this file imports none.) The edge shapes are chip_smoke.py's,
+so its phase 3 and these tests hold the kernels to the same cases."""
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import MM_CASES, OLA_CASES, mm_inputs, ola_call, ola_inputs
 from move2hear_tpu_torch.ops import kernels
 
 ATOL = 1e-5  # float32 elementwise math; the plain versions use the same formulas
@@ -46,3 +49,37 @@ def test_overlap_add_kernel_matches_plain(cuda):
     win, inv_env = kernels.ola_tables(1023, 512, 32, str(frames.device))
     torch.testing.assert_close(out, kernels.overlap_add_plain(frames, win, inv_env, 512),
                                atol=ATOL, rtol=0)
+    # same sums in the same order with non-contracted float ops: bitwise equal
+    assert torch.equal(out, kernels.overlap_add_plain(frames, win, inv_env, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(MM_CASES))
+def test_masked_mix_slice16_kernel_edge_shapes(cuda, label):
+    b, f, t, c, offset = MM_CASES[label]
+    mix, mask = mm_inputs(torch, MM_CASES[label])
+    assert mix.storage_offset() == offset and mix.is_contiguous()
+    out = kernels.masked_mix_slice16(mix, mask)
+    torch.cuda.synchronize()
+    assert out.shape == (b, 16 * c, f // 16, t)
+    torch.testing.assert_close(out, kernels.masked_mix_slice16_plain(mix, mask), atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(OLA_CASES))
+def test_overlap_add_kernel_edge_shapes(cuda, label):
+    case = OLA_CASES[label]
+    (frames,) = ola_inputs(torch, case)
+    assert frames.storage_offset() == case[-1] and frames.is_contiguous()
+    out = ola_call(kernels, case)(frames)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ola_call(kernels, case, plain=True)(frames))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_grids_over_their_limits(cuda):
+    x = torch.zeros((65536, 16, 1, 1), device=cuda)
+    with pytest.raises(ValueError):
+        kernels.masked_mix_slice16(x, x)
+    with pytest.raises(ValueError):
+        kernels.overlap_add(torch.zeros((65536, 1, 16), device=cuda), n_fft=16, hop=4)

@@ -76,6 +76,54 @@ def test_overlap_add_plain_matches_pallas_interpret():
     np.testing.assert_allclose(_np(out), _np(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("b,n_frames,n_fft,hop,start,length", [
+    (2, 32, 1023, 512, 511, 16000),  # the eval path's trim
+    (2, 1, 1023, 512, 511, 300),     # one frame
+    (2, 10, 1023, 200, 100, 1901),   # hop < n_fft/2: up to 6 frames cover a sample
+    (2, 5, 1023, 512, 0, 3071),      # odd out_len, the whole signal
+    (3, 32, 1023, 512, 511, 16001),  # length not a multiple of 4
+    (2, 9, 8, 3, 5, 23),             # hop < 4: a 4-sample run spans several frames
+], ids=["path", "one-frame", "hop200", "odd-out-len", "length-16001", "hop3"])
+def test_overlap_add_plain_trimmed_equals_slice(b, n_frames, n_fft, hop, start, length):
+    frames = torch.tensor(
+        np.random.default_rng(n_frames + hop).standard_normal((b, n_frames, n_fft)),
+        dtype=torch.float32,
+    )
+    win, inv_env = kernels.ola_tables(n_fft, hop, n_frames, "cpu")
+    full = kernels.overlap_add_plain(frames, win, inv_env, hop)
+    assert full.shape == (b, n_fft + hop * (n_frames - 1))
+    trimmed = kernels.overlap_add_plain(frames, win, inv_env, hop, start, length)
+    assert torch.equal(trimmed, full[:, start : start + length])
+    out = kernels.overlap_add(frames, n_fft=n_fft, hop=hop, start=start, length=length)
+    assert torch.equal(out, trimmed)
+
+
+def test_overlap_add_refuses_samples_outside_the_signal():
+    frames = torch.zeros((1, 3, 16))
+    for start, length in ((-1, 4), (0, 16 + 2 * 4 + 1), (30, 2)):
+        with pytest.raises(ValueError):
+            kernels.overlap_add(frames, n_fft=16, hop=4, start=start, length=length)
+
+
+def test_batched_istft_equals_separate_calls():
+    """The evaluator's one ISTFT of five stacked signals (gt, mono, mem, mix
+    left, mix right) against five separate calls, as the JAX evaluator
+    makes them."""
+    rng = np.random.default_rng(7)
+    mags = np.abs(rng.standard_normal((5, 3, 512, 32))).astype(np.float32)
+    phases = rng.uniform(-np.pi, np.pi, (5, 3, 512, 32)).astype(np.float32)
+    # In a process that has JAX loaded, the first torch.cos over a large CPU
+    # tensor can come back with one intra-op thread's chunk off by up to
+    # 1.5e-4; later calls are exact to float32. A first call at this size
+    # takes that hit, so the comparison below is of the batching alone.
+    t_stft.istft_mag_phase(torch.tensor(mags), torch.tensor(phases))
+    batched = t_stft.istft_mag_phase(torch.tensor(mags), torch.tensor(phases))
+    assert batched.shape == (5, 3, 16000)
+    for i in range(5):
+        one = t_stft.istft_mag_phase(torch.tensor(mags[i]), torch.tensor(phases[i]))
+        np.testing.assert_allclose(_np(batched[i]), _np(one), atol=1e-6, rtol=0)
+
+
 def test_istft_matches_jax():
     y = np.random.default_rng(3).standard_normal((2, 16000)).astype(np.float32)
     spec = j_stft.stft(jnp.asarray(y))
