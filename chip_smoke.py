@@ -5,12 +5,13 @@
 
 Phases, each printing its own line(s) with its seconds:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: the CUDA sources of move2hear_tpu_torch/csrc/ (both kernels
-     and the empty kernel of the launch floor; nvcc, in parallel), with
-     ptxas registers and spills;
+  2. build: the CUDA sources of move2hear_tpu_torch/csrc/ (the three
+     kernels and the empty kernel of the launch floor; nvcc, in parallel),
+     with ptxas registers and spills;
   3. kernels: each against its plain PyTorch version on the card at the
      eval path's shapes and at edge shapes (small and ragged sizes, a view
-     with a storage offset; overlap_add bitwise), then, at the path's
+     with a storage offset; overlap_add bitwise; the masked_mix_slice16
+     backward at every masked_mix_slice16 shape), then, at the paths'
      shapes, kernel and plain device times (CUDA events around CUDA-graph
      replays; L2-cold over input copies that overflow the L2, and L2-hot
      over one input set), the time of an empty kernel of the same grid in
@@ -19,11 +20,24 @@ Phases, each printing its own line(s) with its seconds:
   4. slice: ``move2hear_tpu_torch.main --run-type eval`` with
      configs/test/nearTarget.yaml at full width (hidden 512, 64 micro-scene
      episodes, 16 envs, seeded random weights), cold then warm; the launch
-     counters must read 160 and 80 after the run;
+     counters must read EVAL_LAUNCHES after the run;
   5. parity: a short eval on the card (TF32 off) against the same eval on
      the CPU's plain path: equal deterministic actions, STFT-L2 and SI-SDR
      within tolerance;
-  6. one JSON line {"kernels": [...]}, then the last line
+  6. train: ``move2hear_tpu_torch.main --run-type train`` with
+     configs/train/nearTarget.yaml at full width (hidden 512, 14 envs, 20
+     steps, 6 updates a cycle, 4 epochs) for 2 cycles from seeded random
+     weights; set-up seconds, per-cycle seconds of collect, policy update
+     and refit, warm (second-cycle) env-steps/s, finite losses, launch
+     counters equal to TRAIN_LAUNCHES; then the eval CLI on the checkpoint
+     it wrote;
+  7. train-parity: one PPO update and one separator refit on one injected
+     full-width rollout (numpy seed) on the card (TF32 off), against the
+     same on the CPU in float64: losses and each parameter tensor's change
+     from the starting weights within 1e-4 relative (in norm); beside it
+     the CPU's float32 run, a CPU run fed the card's kernel outputs, and
+     the ReLU units where a float32 run takes another sign than float64;
+  8. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Without a GPU, or without
 the package beside this file, it fails at once.
@@ -44,18 +58,32 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20       # H100 SXM L2 cache
 KERNEL_TOL = 1e-5           # float32 elementwise math, same formulas as plain
+TRAIN_TOL = 1e-4            # relative, CUDA (TF32 off) vs CPU float64 after one update and refit
 REPLACES = {
     "masked_mix_slice16": "move2hear_tpu/ops/pallas_kernels.py:85",
     "overlap_add": "move2hear_tpu/ops/pallas_kernels.py:186",
+    # the analytic custom-VJP backward (jnp, not a Pallas kernel)
+    "masked_mix_slice16_bwd": "move2hear_tpu/ops/pallas_kernels.py:140",
 }
-PATH_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 80}
+# Launches of each kernel on the two paths the script drives.
+# eval: 16 envs x 20 steps x 5 batches; 2 masked_mix_slice16 a step (the
+# bin2mono encoder and the policy's bin encoder), one overlap_add a step.
+EVAL_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 80, "masked_mix_slice16_bwd": 0}
+# train: 2 cycles x 6 updates x (20 collect steps x 2 + 2 for the bootstrap
+# forward + 4 PPO epochs x 1 bin encoder over the 280 stored steps) = 552;
+# the stored inputs need no gradient, so the backward never runs, and
+# training computes no ISTFT.
+TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
 # Shapes each kernel is held to on the card. The first is the eval path's
 # (one launch per separator call at 16 envs; the step's five ISTFTs of 16
-# envs in one trimmed overlap-add). masked_mix_slice16: (B, F, T, C, storage
+# envs in one trimmed overlap-add); masked_mix_slice16's "train" is the PPO
+# epoch's (20 steps x 14 envs flattened). The backward is held at every
+# masked_mix_slice16 shape. masked_mix_slice16: (B, F, T, C, storage
 # offset in floats); overlap_add: (B, n_frames, n_fft, hop, start, length or
 # None for the whole signal, storage offset in floats).
 MM_CASES = {
     "path": (16, 512, 32, 2, 0),
+    "train": (280, 512, 32, 2, 0),
     "B=1": (1, 512, 32, 2, 0),
     "C=1": (2, 512, 32, 1, 0),
     "C=3": (2, 64, 8, 3, 0),
@@ -159,6 +187,17 @@ def mm_inputs(torch, case, seed=SEED):
     return on_card(torch, mix, offset), on_card(torch, mask, offset)
 
 
+def mm_bwd_inputs(torch, case, seed=SEED):
+    """(g, mix, mask) of a MM_CASES shape: the NCHW cotangent and the
+    forward's inputs, from a numpy seed."""
+    import numpy as np
+
+    b, f, t, c, offset = case
+    mix, mask = mm_inputs(torch, case, seed)
+    g = np.random.default_rng(seed + 1).standard_normal((b, 16 * c, f // 16, t))
+    return (on_card(torch, g, offset), mix, mask)
+
+
 def ola_inputs(torch, case, seed=SEED):
     """(frames,) of an OLA_CASES shape, from a numpy seed."""
     import numpy as np
@@ -204,6 +243,15 @@ def mm_work(case):
     return 3 * n * 4, 4 * n, -(-(f // 16) // ty) * 16 * b, tx * ty
 
 
+def mm_bwd_work(case):
+    """(bytes, float operations, blocks, threads) of a masked_mix_slice16_bwd
+    call: three inputs read, two outputs written; expm1, exp, a compare, an
+    add, a divide and four multiplies per element; the forward's grid."""
+    n = math.prod(case[:4])
+    _, _, blocks, threads = mm_work(case)
+    return 5 * n * 4, 10 * n, blocks, threads
+
+
 def check_phase(torch, kernels):
     """Phase 3a: every kernel against its plain version at every case shape.
     Returns {kernel: max abs error at the path shape}."""
@@ -215,7 +263,16 @@ def check_phase(torch, kernels):
         if not err <= KERNEL_TOL:
             fail(f"masked_mix_slice16 {label} {case}: max abs error {err} > {KERNEL_TOL}")
         errs.setdefault("masked_mix_slice16", err)
-        print(f"check masked_mix_slice16 {label} {case[:4]} offset {case[4]}: max abs err {err:.3e}", flush=True)
+        g, mix, mask = mm_bwd_inputs(torch, case)
+        (dmix, dmask), (pmix, pmask) = (kernels.masked_mix_slice16_bwd(g, mix, mask),
+                                        kernels.masked_mix_slice16_bwd_plain(g, mix, mask))
+        bwd_err = max(float((dmix - pmix).abs().max()), float((dmask - pmask).abs().max()))
+        torch.cuda.synchronize()
+        if not bwd_err <= KERNEL_TOL:
+            fail(f"masked_mix_slice16_bwd {label} {case}: max abs error {bwd_err} > {KERNEL_TOL}")
+        errs.setdefault("masked_mix_slice16_bwd", bwd_err)
+        print(f"check masked_mix_slice16 {label} {case[:4]} offset {case[4]}: max abs err {err:.3e}; "
+              f"backward {bwd_err:.3e}", flush=True)
     for label, case in OLA_CASES.items():
         args = ola_inputs(torch, case)
         out, ref = ola_call(kernels, case)(*args), ola_call(kernels, case, plain=True)(*args)
@@ -229,13 +286,23 @@ def check_phase(torch, kernels):
 
 
 def time_phase(torch, kernels, errs):
-    """Phase 3b: times and bounds at the path's shapes (and overlap_add at
-    the whole-signal B=16 shape it was first timed at). Returns the JSON rows, one per kernel,
-    at the path's shapes."""
+    """Phase 3b: times and bounds at the paths' shapes (and overlap_add at
+    the whole-signal B=16 shape it was first timed at). Returns the JSON
+    rows, one per kernel: the forwards at the eval path's shapes, the
+    backward at the training shape."""
     empty = build_empty()
     timed = [  # name, label, kernel, plain, inputs, work
         ("masked_mix_slice16", "path", kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain,
          mm_inputs(torch, MM_CASES["path"]), mm_work(MM_CASES["path"])),
+        ("masked_mix_slice16", "train", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["train"]),
+         mm_work(MM_CASES["train"])),
+        ("masked_mix_slice16_bwd", "train", kernels.masked_mix_slice16_bwd,
+         kernels.masked_mix_slice16_bwd_plain, mm_bwd_inputs(torch, MM_CASES["train"]),
+         mm_bwd_work(MM_CASES["train"])),
+        ("masked_mix_slice16_bwd", "path", kernels.masked_mix_slice16_bwd,
+         kernels.masked_mix_slice16_bwd_plain, mm_bwd_inputs(torch, MM_CASES["path"]),
+         mm_bwd_work(MM_CASES["path"])),
         ("overlap_add", "path", ola_call(kernels, OLA_CASES["path"]),
          ola_call(kernels, OLA_CASES["path"], plain=True),
          ola_inputs(torch, OLA_CASES["path"]), ola_work(OLA_CASES["path"])),
@@ -253,7 +320,7 @@ def time_phase(torch, kernels, errs):
         eager, eager_plain = eager_ms(lambda: kern(*args)), eager_ms(lambda: plain(*args))
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        if label == "path":
+        if (label == "path") != (name == "masked_mix_slice16_bwd"):
             rows[name] = {
                 "name": name, "route": "cuda",
                 "source": f"move2hear_tpu_torch/csrc/{name}.cu",
@@ -338,8 +405,8 @@ def slice_phase(torch, kernels, card, run_dir):
     t0 = time.perf_counter()
     results, stats = run_eval(torch, kernels, run_dir, 2)
     for run, (counts, tm, wall, agg) in zip(("cold", "warm"), results):
-        if counts != PATH_LAUNCHES:
-            fail(f"main-path kernel launches {counts}, expected {PATH_LAUNCHES}")
+        if counts != EVAL_LAUNCHES:
+            fail(f"eval-path kernel launches {counts}, expected {EVAL_LAUNCHES}")
         phase("slice", t0, (
             f"run {run}: {tm['episodes'] / tm['loop_s']:.3f} episodes/s, "
             f"{tm['env_steps'] / tm['loop_s']:.1f} env-steps/s over the episode loop "
@@ -355,8 +422,288 @@ def slice_phase(torch, kernels, card, run_dir):
         f"{k} {agg[k]['mean']:.6f}" for k in
         ("mono_l2_last", "mem_l2_last", "bin_l2_all", "mono_si_sdr_last", "monoFromMem_si_sdr_last")
     ), flush=True)
-    print(f"main-path launches: {counts}", flush=True)
+    print(f"eval-path launches: {counts}", flush=True)
     return counts
+
+
+TRAIN_EXP = os.path.join(REPO, "configs", "train", "nearTarget.yaml")
+TRAIN_OPTS = ["NUM_UPDATES", "12", "RL.PPO.pretrained_passive_separators_ckpt", ""]
+
+
+def train_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=TRAIN_LAUNCHES):
+    """Phase 6: the train CLI at full width for 2 cycles, with the launch
+    counters set to 0 just before it and read just after; then the eval CLI
+    on the checkpoint it wrote. Returns the train path's launch counts.
+    (`device`, `opts` and `launches` let a rehearsal run it small on the
+    CPU.)"""
+    import numpy as np
+
+    from move2hear_tpu_torch.main import main as port_main
+
+    dev_args = ["--device", device]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = port_main(["--run-type", "train", "--exp-config", TRAIN_EXP, "--model-dir", run_dir,
+                         *dev_args, *TRAIN_OPTS, *opts])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    if counts != launches:
+        fail(f"train-path kernel launches {counts}, expected {launches}")
+    cycles = trainer.cycle_log
+    if len(cycles) != 2:
+        fail(f"train ran {len(cycles)} cycles, expected 2")
+    for i, c in enumerate(cycles):
+        phase("train", t0, (
+            f"cycle {i} ({'cold' if i == 0 else 'warm'}): {c['env_steps']} env-steps in "
+            f"{c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; collect "
+            f"{c['collect']:.3f} s, policy update {c['update']:.3f} s, refit {c['refit']:.3f} s "
+            f"({card})"
+        ))
+    for i, (pol, sep) in enumerate(trainer.loss_log):
+        if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
+            fail(f"train cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
+        print(f"train cycle {i} losses, last update: value {pol[-1][0]:.6f} action "
+              f"{pol[-1][1]:.6f} entropy {pol[-1][2]:.6f}; refit bin {sep[-1][0]:.6f} "
+              f"mono {sep[-1][1]:.6f} mem {sep[-1][2]:.6f}", flush=True)
+    warm = cycles[1]
+    print(f"train: set-up {trainer.setup_s:.3f} s, warm {warm['env_steps'] / warm['total']:.1f} "
+          f"env-steps/s, end to end {sum(c['env_steps'] for c in cycles) / wall:.1f} env-steps/s "
+          f"over {wall:.3f} s; train-path launches: {counts}", flush=True)
+
+    ckpts = sorted(f for f in os.listdir(trainer.config.CHECKPOINT_FOLDER) if f.startswith("ckpt."))
+    ckpt = os.path.join(trainer.config.CHECKPOINT_FOLDER, f"ckpt.{len(cycles)}.pth")
+    if not os.path.exists(ckpt):
+        fail(f"train wrote {ckpts}, not ckpt.{len(cycles)}.pth")
+    t1 = time.perf_counter()
+    ev = port_main(["--run-type", "eval", "--exp-config",
+                    os.path.join(REPO, "configs", "test", "nearTarget.yaml"),
+                    "--model-dir", os.path.join(run_dir, "eval"), *dev_args,
+                    "EVAL_CKPT_PATH_DIR", ckpt, *opts])
+    agg, tm = ev.last_eval
+    for k in ("mono_l2_last", "mem_l2_last", "bin_l2_all"):
+        if not all(math.isfinite(v) for v in agg[k].values()):
+            fail(f"eval of the trained checkpoint: {k} not finite: {agg[k]}")
+    phase("train", t1, (
+        f"eval of {os.path.basename(ckpt)} (of {ckpts}): {tm['episodes']} episodes, "
+        f"mono_l2_last {agg['mono_l2_last']['mean']:.6f}, mem_l2_last "
+        f"{agg['mem_l2_last']['mean']:.6f}, bin_l2_all {agg['bin_l2_all']['mean']:.6f}"
+    ))
+    return counts
+
+
+def synthetic_rollout(seed, t, n, hidden, num_actions, n_poses=None, frames=False):
+    """A PPO rollout in the layout make_update_pol reads (the JAX package's
+    and the port's), as numpy arrays from `seed`: (T+1)-slot observations
+    with pose indices in [0, n_poses) or frames, hidden states, separator
+    outputs, masks with an episode reset half-way, values, rewards,
+    returns (GAE, gamma 0.99, tau 0.95), actions and their old log-probs
+    near uniform."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    obs = {
+        "mixed_bin_audio_mag": np.abs(rng.standard_normal((t + 1, n, 512, 32, 2))).astype(f32),
+        "target_class": rng.integers(0, 2, (t + 1, n, 1)).astype(np.int64),
+    }
+    if n_poses is not None:
+        obs["pose"] = rng.integers(0, n_poses, (t + 1, n)).astype(np.int64)
+    if frames:
+        obs["rgb"] = rng.integers(0, 256, (t + 1, n, 128, 128, 3)).astype(np.uint8)
+        obs["depth"] = rng.uniform(0, 1, (t + 1, n, 128, 128, 1)).astype(f32)
+    masks = np.ones((t + 1, n, 1), f32)
+    masks[t // 2 + 1, : max(1, n // 2)] = 0.0  # those envs start a new episode
+    rewards = (0.1 * rng.standard_normal((t, n, 1))).astype(f32)
+    values = (0.1 * rng.standard_normal((t + 1, n, 1))).astype(f32)
+    gae, returns = np.zeros((n, 1), f32), np.zeros((t + 1, n, 1), f32)
+    returns[t] = values[t]
+    for i in reversed(range(t)):
+        delta = rewards[i] + 0.99 * values[i + 1] * masks[i + 1] - values[i]
+        gae = delta + 0.99 * 0.95 * masks[i + 1] * gae
+        returns[i] = gae + values[i]
+    return {
+        "observations": obs,
+        "hidden": (0.5 * rng.standard_normal((t + 1, n, hidden))).astype(f32),
+        "pred_binSepMasks": rng.uniform(0.0, 1.2, (t, n, 512, 32, 2)).astype(f32),
+        "pred_mono": np.abs(rng.standard_normal((t, n, 512, 32, 1))).astype(f32),
+        "prev_pred_monoFromMem": np.abs(rng.standard_normal((t + 1, n, 512, 32, 1))).astype(f32),
+        "rewards": rewards,
+        "value_preds": values,
+        "returns": returns,
+        "action_log_probs": (np.log(1.0 / num_actions)
+                             + 0.05 * rng.standard_normal((t, n, 1))).astype(f32),
+        "actions": rng.integers(0, num_actions, (t, n, 1)).astype(np.int64),
+        "masks": masks,
+    }
+
+
+def synthetic_sep_slab(seed, t, n):
+    """The refit's cached slabs (T, N, ...) as numpy arrays from `seed`:
+    pred_mono, gt_mono, prev_mem, masks (a reset half-way), logging L1s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    masks = np.ones((t, n, 1), f32)
+    masks[t // 2, : max(1, n // 2)] = 0.0
+    return {
+        "pred_mono": np.abs(rng.standard_normal((t, n, 512, 32, 1))).astype(f32),
+        "gt_mono": np.abs(rng.standard_normal((t, n, 512, 32, 1))).astype(f32),
+        "prev_mem": np.abs(rng.standard_normal((t, n, 512, 32, 1))).astype(f32),
+        "masks": masks,
+        "bin_l1": rng.uniform(0, 1, (t, n)).astype(f32),
+        "mono_l1": rng.uniform(0, 1, (t, n)).astype(f32),
+    }
+
+
+def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
+    """Phase 7: one PPO update (4 epochs, pose bank) and one separator refit
+    (4 grad steps) on one injected full-width rollout (20 steps x 14 envs,
+    hidden 512), from the same seeded weights, in five runs: A on
+    devices[0] (the card, TF32 off); A' the same again; B on devices[1]
+    (the CPU); C as B but with the bin encoder fed A's masked_mix_slice16
+    outputs in place of its own; D as B in float64, the reference. (`devices`
+    and the sizes let a rehearsal run it small on the CPU.)
+
+    A pair is read on its losses (relative) and, per parameter tensor, on
+    the change from the starting weights: ||dp_x - dp_y|| / ||dp_y||, and
+    element by element max |p_x - p_y| / (|p_y| + lr). Gates: the losses of
+    A against B and against D, and dp of every tensor of A against D,
+    within TRAIN_TOL. Printed beside them: A against A' (the card's own
+    spread), B against C (what the update makes of the kernel's roundings
+    alone), B against D (the CPU's float32 against float64), A against B,
+    and each float32 run's ReLU units whose sign differs from D's, by
+    module and epoch, with D's pre-activation there. Where a float32 run
+    flips a unit, the gradients it feeds part from there, and Adam (eps
+    1e-5) carries that into later steps; such a run is not held to D."""
+    import numpy as np
+
+    import move2hear_tpu_torch.models.audio_cnn as audio_cnn
+    from move2hear_tpu_torch.models import Move2HearPolicy
+    from move2hear_tpu_torch.rl.device_rollout import RolloutSepIdx, make_update_sep_from_slabs
+    from move2hear_tpu_torch.rl.ppo import PPOConfig, create_agent_state, make_update_pol
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PPOConfig()
+    roll = synthetic_rollout(SEED + 2, t, n, hid, 3, n_poses=64)
+    slab = synthetic_sep_slab(SEED + 3, t, n)
+    rng = np.random.default_rng(SEED + 4)
+    banks = {"rgb": rng.integers(0, 256, (1, 16, 4, 128, 128, 3)).astype(np.uint8),
+             "depth": rng.uniform(0, 1, (1, 16, 4, 128, 128, 1)).astype(np.float32)}
+    torch.manual_seed(SEED + 5)
+    weights = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True).state_dict()
+    start = {k: v.double().numpy() for k, v in weights.items() if v.is_floating_point()}
+    lr = {k: cfg.lr_sep if k.startswith("acoustic_mem.") else cfg.lr_pol for k in start}
+    kernel = audio_cnn.masked_mix_slice16
+
+    def run(name, feed=None, dtype=torch.float32):
+        """(losses, parameters, bin-encoder inputs, ReLU inputs by module)
+        of one update and refit; with `feed`, the bin encoder takes feed[i]
+        as its i-th input."""
+        dev = torch.device(name)
+        seen, relu_in = [], {}
+
+        def on(x):
+            if isinstance(x, dict):
+                return {k: on(v) for k, v in x.items()}
+            v = torch.from_numpy(x)
+            return (v.to(dtype) if v.is_floating_point() else v).to(dev)
+
+        def bin_input(mix, mask):
+            out = kernel(mix, mask)
+            seen.append(out.detach().cpu())
+            return out if feed is None else feed[len(seen) - 1].to(out.device, out.dtype)
+
+        policy = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True)
+        policy.load_state_dict(weights)
+        policy = policy.to(dev, dtype)
+        hooks = []
+        for mname, m in policy.named_modules():
+            if isinstance(m, torch.nn.ReLU):
+                hooks.append(m.register_forward_hook(
+                    lambda m, i, o, mname=mname: relu_in.setdefault(mname, []).append(
+                        i[0].detach().double().cpu())))
+            elif dtype != torch.float32 and isinstance(m, torch.nn.Conv2d):
+                # the visual encoder casts its frames to float32
+                hooks.append(m.register_forward_pre_hook(
+                    lambda m, i: tuple(x.to(m.weight.dtype) for x in i)))
+        state = create_agent_state(cfg, policy)
+        audio_cnn.masked_mix_slice16 = bin_input
+        default = torch.get_default_dtype()
+        torch.set_default_dtype(dtype)
+        try:
+            pol = make_update_pol(policy, cfg, n, pose_bank=True)(state, on(roll), banks=on(banks))
+            buf = RolloutSepIdx.create(t, n, 2, device=dev)
+            for k, v in slab.items():
+                setattr(buf, k, on(v))
+            sep = make_update_sep_from_slabs(policy, cfg, 1)(state, buf, None, [1.0])
+        finally:
+            audio_cnn.masked_mix_slice16 = kernel
+            torch.set_default_dtype(default)
+            for h in hooks:
+                h.remove()
+        return (torch.cat([pol.reshape(-1), sep.reshape(-1)]).cpu().double().numpy(),
+                {k: v.detach().cpu().double().numpy() for k, v in policy.state_dict().items()
+                 if v.is_floating_point()}, seen, relu_in)
+
+    runs = {"A": run(devices[0])}
+    runs["A'"] = run(devices[0])
+    runs["B"] = run(devices[1])
+    runs["C"] = run(devices[1], feed=runs["A"][2])
+    runs["D"] = run(devices[1], dtype=torch.float64)
+    fed = max(float((a - b).abs().max()) for a, b in zip(runs["A"][2], runs["B"][2]))
+    n_diff = sum(int((a != b).sum()) for a, b in zip(runs["A"][2], runs["B"][2]))
+    n_all = sum(a.numel() for a in runs["A"][2])
+    if not fed <= KERNEL_TOL:
+        fail(f"train-parity: bin-encoder inputs of {devices[0]} and {devices[1]} differ by {fed}")
+
+    def compare(x, y):
+        (la, pa, _, _), (lb, pb, _, _) = runs[x], runs[y]
+        loss = float(np.max(np.abs(la - lb) / np.maximum(np.abs(lb), 1e-30)))
+        dp = {k: float(np.linalg.norm(pa[k] - b) / max(np.linalg.norm(b - start[k]), 1e-30))
+              for k, b in pb.items() if not np.array_equal(b, start[k])}
+        elem = {k: float(np.max(np.abs(pa[k] - b) / (np.abs(b) + lr[k]))) for k, b in pb.items()}
+        top = sorted(dp.items(), key=lambda kv: -kv[1])[:3]
+        ek = max(elem, key=elem.get)
+        print(f"train-parity {x} vs {y}: losses max rel err {loss:.3e}; dp max rel err in norm "
+              + ", ".join(f"{v:.3e} ({k})" for k, v in top)
+              + f"; elementwise max {elem[ek]:.3e} ({ek}); {len(dp)} tensors moved", flush=True)
+        return loss, top[0]
+
+    def flips(x):
+        """ReLU units whose input sign differs from D's: (module, call) ->
+        (count, largest |input| of D there)."""
+        out = {}
+        for mname, calls in runs["D"][3].items():
+            for i, (a, d) in enumerate(zip(runs[x][3][mname], calls)):
+                f = (a > 0) != (d > 0)
+                if f.any():
+                    out[f"{mname}#{i + 1}"] = (int(f.sum()), float(d.abs()[f].max()))
+        print(f"train-parity {x} vs D: ReLU units of another sign (module#call: count, largest "
+              f"|D input| there): {out or 'none'}", flush=True)
+
+    readings = {pair: compare(*pair) for pair in (
+        ("A", "D"), ("A", "A'"), ("B", "C"), ("B", "D"), ("A", "B"))}
+    flips("A")
+    flips("B")
+    for pair in (("A", "D"), ("A", "B")):
+        if not readings[pair][0] <= TRAIN_TOL:
+            fail(f"train-parity {pair[0]} vs {pair[1]}: losses rel err {readings[pair][0]} "
+                 f"(tol {TRAIN_TOL})")
+    key, dp = readings[("A", "D")][1]
+    if not dp <= TRAIN_TOL:
+        fail(f"train-parity A vs D: parameter change of {key} differs by {dp} relative in "
+             f"norm (tol {TRAIN_TOL})")
+    phase("train-parity", t0, (
+        f"A {devices[0]} vs D {devices[1]} float64, one update (4 epochs) + one refit (4 "
+        f"steps) over ({t}, {n}) at hidden {hid}: losses and every parameter change within "
+        f"{TRAIN_TOL} (largest {dp:.3e}, {key}); bin-encoder inputs of A and B differ in "
+        f"{n_diff} of {n_all} elements, by at most {fed:.3e}"
+    ))
 
 
 def parity_phase(torch):
@@ -451,9 +798,17 @@ def main():
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     parity_phase(torch)
+    os.makedirs(run_dir)
+    try:
+        train_launches = train_phase(torch, kernels, card, run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    train_parity_phase(torch)
 
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        # the launches of both paths' runs
+        row["launches"] = launches[name] + train_launches[name]
+        row["launches_by_path"] = {"eval": launches[name], "train": train_launches[name]}
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

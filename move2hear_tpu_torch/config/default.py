@@ -7,7 +7,8 @@ BASE_TASK_CONFIG YAML -> CLI opts, then frozen.
 The keys are the JAX package's, so the YAMLs under configs/ merge
 unchanged. Of its `TPU` group the port keeps, under the same name, only the
 keys its code reads: DEVICE_ENV, DEVICE_EVAL_MIN_EPISODES, MAX_RIR_LENGTH,
-PRECOMPUTE_RIR_RFFT and MAX_DEVICE_BANK_BYTES.
+PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, RIR_MODE and
+STATS_FETCH_INTERVAL.
 """
 
 import os
@@ -119,6 +120,10 @@ def default_config() -> Config:
     c.TPU.MAX_DEVICE_BANK_BYTES = 8 * 1024**3  # device-env gate: when the
     # projected RIR bank of a bundle exceeds this, the trainer refuses the
     # device route (the streaming host path is not ported yet)
+    c.TPU.RIR_MODE = "auto"  # dense forces the dense device banks, skipping
+    # the MAX_DEVICE_BANK_BYTES gate; sub and host are not ported yet
+    c.TPU.STATS_FETCH_INTERVAL = 2  # the trainer fetches the packed logging
+    # stats to the host every N cycles
 
     c.TASK_CONFIG = default_task_config()
     return c

@@ -97,6 +97,32 @@ def estimate_bank_bytes(bundle, image_size: int = 128) -> int:
     return rir + frames + wav
 
 
+def estimate_rir_rfft_bytes(bundle) -> int:
+    """Extra device bytes of the precomputed RIR-rfft bank on top of the
+    dense bank: (..., NF, 2 ears, 2 re/im) f32 per RIR."""
+    scenes = bundle.scenes
+    v = max(s.num_nodes for s in scenes.values())
+    r = bundle.audio_db.rir_length
+    nf = fast_circular_len(bundle.audio_db.wav_length, r) // 2 + 1
+    return len(scenes) * 4 * v * v * nf * 2 * 2 * 4
+
+
+def make_order_table(num_envs: int, num_episodes: int, seed: int) -> np.ndarray:
+    """(num_envs, K) per-env shuffled episode order: episodes split
+    round-robin when there are enough, else a permutation of all per env
+    (the JAX package's table, drawn from the same numpy seed)."""
+    rng = np.random.default_rng(seed)
+    if num_episodes >= num_envs:
+        per = num_episodes // num_envs
+        table = np.zeros((num_envs, per), np.int64)
+        perm = rng.permutation(num_episodes)
+        for i in range(num_envs):
+            table[i] = perm[i * per : (i + 1) * per]
+    else:
+        table = np.stack([rng.permutation(num_episodes) for _ in range(num_envs)])
+    return table.astype(np.int64)
+
+
 def _scene_list(scenes) -> list:
     """Deterministic scene order: sorted by name."""
     return [scenes[k] for k in sorted(scenes)]

@@ -1,9 +1,12 @@
 """CLI entry point of the port (the JAX package's ``main.py``): build the
 config, resolve the trainer from the registry, dispatch train/eval.
 
+    python -m move2hear_tpu_torch.main --run-type train \\
+        --exp-config configs/train/nearTarget.yaml --model-dir DIR \\
+        [--device cpu] RL.PPO.pretrained_passive_separators_ckpt ""
     python -m move2hear_tpu_torch.main --run-type eval \\
         --exp-config configs/test/nearTarget.yaml --model-dir DIR \\
-        EVAL_CKPT_PATH_DIR path/to/ckpt.pt [--device cpu]
+        [--device cpu] EVAL_CKPT_PATH_DIR DIR/data/ckpt.N.pth
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and never falls back
 on its own.

@@ -29,6 +29,10 @@ class Categorical:
         """actions (B, 1) int -> (B, 1) log-probabilities."""
         return torch.gather(self.log_probs_all, -1, actions.long())
 
+    def entropy(self) -> torch.Tensor:
+        """(B,) entropies, -sum(p * log p)."""
+        return -torch.sum(self.probs() * self.log_probs_all, dim=-1)
+
 
 class CategoricalNet(nn.Module):
     def __init__(self, num_inputs: int, num_actions: int):

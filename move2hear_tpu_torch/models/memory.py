@@ -18,7 +18,16 @@ class AcousticMem(nn.Module):
         layers += [nn.ReLU(), nn.Conv2d(32, SLICE_FACTOR, 3, padding=1, bias=False)]
         self.cnn = nn.Sequential(*layers)
 
-    def forward(self, pred_mono: torch.Tensor, prev_pred_mono_from_mem_masked: torch.Tensor):
+    def forward(self, pred_mono: torch.Tensor,
+                prev_pred_mono_from_mem_masked: torch.Tensor = None,
+                sliced: bool = False):
+        """sliced=False: (B, F, T, 1) inputs and output. sliced=True: the
+        pre-concatenated sliced input (B, 32, F/16, T) as `pred_mono`, and a
+        sliced (B, 16, F/16, T) output; the separator refit hoists the slice
+        and the concat out of its loop (slicing is a permutation, so a mean
+        over all elements is unchanged)."""
+        if sliced:
+            return self.cnn(pred_mono)
         x = torch.cat(
             [slice16_nchw(pred_mono), slice16_nchw(prev_pred_mono_from_mem_masked)],
             dim=1,

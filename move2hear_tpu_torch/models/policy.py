@@ -1,12 +1,18 @@
 """The full Move2Hear policy (the reference's ``rl/ppo/policy.py``).
 
 Submodule names mirror the reference (binSep_enc, binSep_dec, bin2mono_enc,
-bin2mono_dec, acoustic_mem, pol_net, action_dist, critic). This port covers
-inference: the separator chain, ``act`` and the visual-feature bank.
-Spectrogram inputs and outputs keep the sensor layout (B, F, T, C).
+bin2mono_dec, acoustic_mem, pol_net, action_dist, critic). Spectrogram
+inputs and outputs keep the sensor layout (B, F, T, C).
+
+Gradient islands as in the JAX package (its ``stop_gradient``s are
+``.detach()`` here): the separator outputs entering the policy net in
+``act`` and ``get_value``, the bin2mono input mask and the acoustic-memory
+inputs are detached, giving {pol_net, action_dist, critic}, {acoustic_mem}
+and the frozen passive separators. ``evaluate_actions`` does not detach:
+its inputs are rollout storage.
 """
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -79,6 +85,22 @@ class PolicyNet(nn.Module):
         x = self.features(observations, pred_binSepMasks, pred_mono, pred_monoFromMem)
         return self.state_encoder(x, hidden, masks)
 
+    def seq(self, observations, hidden, masks, pred_binSepMasks, pred_mono,
+            pred_monoFromMem):
+        """Sequence form: observation values (T, N, ...), hidden (N, H),
+        masks (T, N, 1). The encoders run over the flattened T*N batch, the
+        GRU steps over T. Returns ((T, N, H) outputs, final hidden)."""
+        t, n = masks.shape[0], masks.shape[1]
+
+        def flat(v):
+            return v.reshape((t * n,) + tuple(v.shape[2:]))
+
+        x = self.features(
+            {k: flat(v) for k, v in observations.items()},
+            flat(pred_binSepMasks), flat(pred_mono), flat(pred_monoFromMem),
+        )
+        return self.state_encoder(x.reshape(t, n, -1), hidden, masks)
+
 
 class Move2HearPolicy(nn.Module):
     """Full agent: policy net + action/critic heads + the five separator
@@ -111,12 +133,19 @@ class Move2HearPolicy(nn.Module):
 
     def convert_bin2mono(self, pred_binSepMasks, mixed_audio) -> torch.Tensor:
         bottleneck, skips = self.bin2mono_enc(
-            mixed_audio, pred_bin_sep_masks=pred_binSepMasks
+            mixed_audio, pred_bin_sep_masks=pred_binSepMasks.detach()
         )
         return self.bin2mono_dec(bottleneck, skips)
 
     def get_monoFromMem(self, pred_mono, prev_pred_monoFromMem_masked) -> torch.Tensor:
-        return self.acoustic_mem(pred_mono, prev_pred_monoFromMem_masked)
+        return self.acoustic_mem(pred_mono.detach(), prev_pred_monoFromMem_masked.detach())
+
+    def _pol_features(self, observations, hidden, masks, pred_binSepMasks,
+                      pred_mono, pred_monoFromMem):
+        return self.pol_net(
+            observations, hidden, masks, pred_binSepMasks.detach(),
+            pred_mono.detach(), pred_monoFromMem.detach(),
+        )
 
     def act(
         self,
@@ -128,13 +157,21 @@ class Move2HearPolicy(nn.Module):
         pred_monoFromMem: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         deterministic: bool = False,
+        sampler: Optional[Callable[[Categorical], torch.Tensor]] = None,
     ) -> ActOutput:
-        feats, new_hidden = self.pol_net(
+        """`sampler`, if given, draws the (B, 1) actions from the
+        distribution in place of ``dist.sample(generator)``."""
+        feats, new_hidden = self._pol_features(
             observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
         )
         dist: Categorical = self.action_dist(feats)
         value = self.critic(feats)
-        action = dist.mode() if deterministic else dist.sample(generator)
+        if deterministic:
+            action = dist.mode()
+        elif sampler is not None:
+            action = sampler(dist)
+        else:
+            action = dist.sample(generator)
         return ActOutput(
             value=value,
             action=action,
@@ -142,3 +179,26 @@ class Move2HearPolicy(nn.Module):
             hidden=new_hidden,
             probs=dist.probs(),
         )
+
+    def get_value(self, observations, hidden, masks, pred_binSepMasks, pred_mono,
+                  pred_monoFromMem) -> torch.Tensor:
+        feats, _ = self._pol_features(
+            observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
+        )
+        return self.critic(feats)
+
+    def evaluate_actions(self, observations, hidden, masks, action, pred_binSepMasks,
+                         pred_mono, pred_monoFromMem):
+        """Sequence evaluation for the PPO update: observation values
+        (T, N, ...), hidden (N, H), masks (T, N, 1), action (T, N, 1).
+        Returns (values (T, N, 1), log-probs (T, N, 1), mean entropy, final
+        hidden)."""
+        t, n = masks.shape[0], masks.shape[1]
+        feats, new_hidden = self.pol_net.seq(
+            observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
+        )
+        feats_flat = feats.reshape(t * n, -1)
+        dist: Categorical = self.action_dist(feats_flat)
+        values = self.critic(feats_flat).reshape(t, n, 1)
+        log_probs = dist.log_probs(action.reshape(t * n, 1)).reshape(t, n, 1)
+        return values, log_probs, dist.entropy().mean(), new_hidden

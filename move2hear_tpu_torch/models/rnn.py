@@ -1,7 +1,11 @@
-"""Single-step GRU state encoder with masked reset (the reference's
+"""GRU state encoder with masked reset (the reference's
 ``rl/models/rnn_state_encoder.py``): the hidden state is multiplied by the
-not-done mask before the cell, so a finished episode starts from zeros.
-Cell math is torch.nn.GRU's (gate order r, z, n)."""
+not-done mask before every cell application, so a finished episode starts
+from zeros. Cell math is torch.nn.GRU's (gate order r, z, n).
+
+The sequence form (the PPO update's) steps the same ``nn.GRU`` over the
+time axis, re-masking the hidden state before each step, as the JAX
+package's ``lax.scan`` does."""
 
 import torch
 from torch import nn
@@ -13,7 +17,15 @@ class GRUStateEncoder(nn.Module):
         self.rnn = nn.GRU(input_size, hidden_size)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor, masks: torch.Tensor):
-        """x (B, D), hidden (B, H), masks (B, 1) -> (output, new hidden),
-        both (B, H)."""
-        out, h = self.rnn(x.unsqueeze(0), (hidden * masks).unsqueeze(0))
-        return out[0], h[0]
+        """Single step: x (B, D), hidden (B, H), masks (B, 1) -> (output, new
+        hidden), both (B, H). Sequence: x (T, B, D), masks (T, B, 1) ->
+        (outputs (T, B, H), final hidden (B, H))."""
+        if x.ndim == 2:
+            out, h = self.rnn(x.unsqueeze(0), (hidden * masks).unsqueeze(0))
+            return out[0], h[0]
+        h = hidden.unsqueeze(0)
+        outs = []
+        for t in range(x.shape[0]):
+            out, h = self.rnn(x[t : t + 1], h * masks[t].unsqueeze(0))
+            outs.append(out[0])
+        return torch.stack(outs), h[0]

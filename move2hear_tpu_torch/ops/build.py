@@ -33,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # mix, mask, out, B, F, T, C, K
     "masked_mix_slice16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # g, mix, mask, dmix, dmask, B, F, T, C, K
+    "masked_mix_slice16_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # frames, win, inv_env, out, B, n_frames, n_fft, hop, start, length
     "overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # blocks, threads: the launch floor chip_smoke.py measures, on no path

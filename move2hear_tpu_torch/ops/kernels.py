@@ -1,5 +1,5 @@
-"""The audio path's two kernels: hand-written CUDA on the card, plain
-PyTorch on the CPU.
+"""The audio path's kernels: hand-written CUDA on the card, plain PyTorch
+on the CPU.
 
 Each public wrapper takes the plain version only for CPU tensors. For CUDA
 tensors it checks device, dtype, shape and contiguity, allocates the output,
@@ -11,7 +11,11 @@ counts the kernel launches, so a run can show that it went through them.
    ``move2hear_tpu/ops/pallas_kernels.py:_masked_mix_slice16_kernel``.
    ``log1p(relu(expm1(mix) * mask))`` followed by the 16-way frequency
    slice; on the card the slice permutation is the kernel's store index and
-   the result is the NCHW tensor the next Conv2d reads. Bound by bytes.
+   the result is the NCHW tensor the next Conv2d reads. Bound by bytes. It
+   is a ``torch.autograd.Function``: its backward is
+   ``masked_mix_slice16_bwd`` (``csrc/masked_mix_slice16_bwd.cu``), which
+   replaces the JAX custom VJP ``pallas_kernels.py:_masked_mix_slice16_bwd``
+   and reads the cotangent through the inverse slice in its load index.
 2. ``overlap_add`` (``csrc/overlap_add.cu``) replaces
    ``move2hear_tpu/ops/pallas_kernels.py:_ola_kernel``: the ISTFT
    overlap-add of Hann-windowed frames times the inverse squared-window
@@ -19,7 +23,7 @@ counts the kernel launches, so a run can show that it went through them.
    the ISTFT keeps. Bound by bytes; each thread gathers 4 consecutive output
    samples from their covering frames in ascending order, no atomics.
 
-Both kernels index in 32 bits and put the batch on a grid dimension, so the
+The kernels index in 32 bits and put the batch on a grid dimension, so the
 wrappers refuse tensors of 2**31 elements or more and batches over 65535.
 """
 
@@ -30,7 +34,7 @@ import torch
 
 from move2hear_tpu_torch.ops import build
 from move2hear_tpu_torch.ops.spec import (
-    SLICE_FACTOR, apply_mask_log1p, hann_window, slice16_nchw,
+    SLICE_FACTOR, apply_mask_log1p, deslice16_nchw, hann_window, slice16_nchw,
 )
 
 
@@ -73,22 +77,25 @@ def masked_mix_slice16_plain(
     return slice16_nchw(apply_mask_log1p(mixed_log_mag, mask), k).contiguous()
 
 
-def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(B, F, T, C) x (B, F, T, C) -> NCHW (B, 16*C, F/16, T) with channel
-    c*16 + chunk: ``slice16(log1p(clamp(expm1(mix) * mask, 0)))``."""
-    if _is_cpu(mixed_log_mag, mask):
-        return masked_mix_slice16_plain(mixed_log_mag, mask)
-    _require_cuda_f32("masked_mix_slice16", mixed_log_mag, mask)
+def _check_mm_shapes(name: str, mixed_log_mag: torch.Tensor, mask: torch.Tensor):
     if mixed_log_mag.ndim != 4 or mask.shape != mixed_log_mag.shape:
         raise ValueError(
-            f"masked_mix_slice16: shapes {tuple(mixed_log_mag.shape)} and "
+            f"{name}: shapes {tuple(mixed_log_mag.shape)} and "
             f"{tuple(mask.shape)}; expected two equal (B, F, T, C)"
         )
     b, f, t, c = mixed_log_mag.shape
+    if f % SLICE_FACTOR:
+        raise ValueError(f"{name}: F={f} is not a multiple of {SLICE_FACTOR}")
+    _require_int32_grid(name, b, mixed_log_mag.numel())
+    return b, f, t, c
+
+
+def _masked_mix_slice16_forward(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    if _is_cpu(mixed_log_mag, mask):
+        return masked_mix_slice16_plain(mixed_log_mag, mask)
+    _require_cuda_f32("masked_mix_slice16", mixed_log_mag, mask)
+    b, f, t, c = _check_mm_shapes("masked_mix_slice16", mixed_log_mag, mask)
     k = SLICE_FACTOR
-    if f % k:
-        raise ValueError(f"masked_mix_slice16: F={f} is not a multiple of {k}")
-    _require_int32_grid("masked_mix_slice16", b, mixed_log_mag.numel())
     out = torch.empty((b, c * k, f // k, t), dtype=torch.float32,
                       device=mixed_log_mag.device)
     lib = build.load("masked_mix_slice16")
@@ -104,7 +111,78 @@ def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch
     return out
 
 
+class _MaskedMixSlice16(torch.autograd.Function):
+    """Saves (mix, mask) as the JAX forward does; the backward recomputes
+    expm1 and exp from them."""
+
+    @staticmethod
+    def forward(ctx, mixed_log_mag, mask):
+        ctx.save_for_backward(mixed_log_mag, mask)
+        return _masked_mix_slice16_forward(mixed_log_mag, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        mixed_log_mag, mask = ctx.saved_tensors
+        return masked_mix_slice16_bwd(g.contiguous(), mixed_log_mag, mask)
+
+
+def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, F, T, C) x (B, F, T, C) -> NCHW (B, 16*C, F/16, T) with channel
+    c*16 + chunk: ``slice16(log1p(clamp(expm1(mix) * mask, 0)))``.
+    Differentiable in both inputs; a gradient is taken only when an input
+    requires one, so inference and the RL path never launch the backward."""
+    return _MaskedMixSlice16.apply(mixed_log_mag, mask)
+
+
 masked_mix_slice16.launches = 0
+
+
+def masked_mix_slice16_bwd_plain(
+    g: torch.Tensor, mixed_log_mag: torch.Tensor, mask: torch.Tensor,
+    k: int = SLICE_FACTOR,
+) -> tuple:
+    """The plain backward, the JAX custom VJP's formula: with
+    u = expm1(mix) * mask and du = g / (1 + u) where u > 0 (else 0),
+    (dmix, dmask) = (du * exp(mix) * mask, du * expm1(mix)), both
+    (B, F, T, C); `g` is the (B, C*k, F/k, T) cotangent of the output."""
+    gd = deslice16_nchw(g, k)
+    e = torch.expm1(mixed_log_mag)
+    u = e * mask
+    du = torch.where(u > 0, gd / (1.0 + u), torch.zeros_like(u))
+    return du * torch.exp(mixed_log_mag) * mask, du * e
+
+
+def masked_mix_slice16_bwd(
+    g: torch.Tensor, mixed_log_mag: torch.Tensor, mask: torch.Tensor
+) -> tuple:
+    """(dmix, dmask) of ``masked_mix_slice16`` for the NCHW cotangent `g`
+    (B, 16*C, F/16, T); each (B, F, T, C)."""
+    if _is_cpu(g, mixed_log_mag, mask):
+        return masked_mix_slice16_bwd_plain(g, mixed_log_mag, mask)
+    _require_cuda_f32("masked_mix_slice16_bwd", g, mixed_log_mag, mask)
+    b, f, t, c = _check_mm_shapes("masked_mix_slice16_bwd", mixed_log_mag, mask)
+    k = SLICE_FACTOR
+    if g.shape != (b, c * k, f // k, t):
+        raise ValueError(
+            f"masked_mix_slice16_bwd: cotangent {tuple(g.shape)}; expected "
+            f"{(b, c * k, f // k, t)}"
+        )
+    dmix = torch.empty_like(mixed_log_mag)
+    dmask = torch.empty_like(mask)
+    lib = build.load("masked_mix_slice16_bwd")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.masked_mix_slice16_bwd_launch(
+            g.data_ptr(), mixed_log_mag.data_ptr(), mask.data_ptr(),
+            dmix.data_ptr(), dmask.data_ptr(), b, f, t, c, k, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"masked_mix_slice16_bwd: launch failed, CUDA error {rc}")
+    masked_mix_slice16_bwd.launches += 1
+    return dmix, dmask
+
+
+masked_mix_slice16_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +267,11 @@ def overlap_add(
 overlap_add.launches = 0
 
 
-KERNEL_WRAPPERS = {"masked_mix_slice16": masked_mix_slice16, "overlap_add": overlap_add}
+KERNEL_WRAPPERS = {
+    "masked_mix_slice16": masked_mix_slice16,
+    "overlap_add": overlap_add,
+    "masked_mix_slice16_bwd": masked_mix_slice16_bwd,
+}
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,242 @@
+"""PPO for Move2Hear (``audio_separation/rl/ppo/ppo.py``), the JAX package's
+``rl/ppo.py`` on PyTorch.
+
+Two optimizers over disjoint parameter groups (ppo.py:48-55):
+  - the pol group (pol_net, action_dist, critic): clipped-surrogate PPO with
+    a clipped value loss, normalized advantages and an entropy bonus;
+  - the sep group (acoustic_mem): the separator refit. The passive
+    separators are frozen: they get no gradient and no optimizer state.
+
+Each optimizer is optax's ``clip_by_global_norm(max_grad_norm) ->
+scale_by_adam(eps) -> scale(-lr * lr_scale)``, the JAX package's chain:
+the clip is written out (``torch.nn.utils.clip_grad_norm_`` divides by
+``norm + 1e-6``; optax scales by ``max_norm / norm`` only when
+``norm >= max_norm``), and the Adam step is ``torch.optim.Adam``'s, whose
+formula is ``scale_by_adam``'s, with the learning rate set per update.
+
+Unlike the JAX package's pure functions, the update functions here change
+the policy's parameters and the optimizer states in place.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+
+from move2hear_tpu_torch.models.policy import Move2HearPolicy
+
+EPS_PPO = 1e-5
+
+POL_KEYS = ("pol_net", "action_dist", "critic")
+SEP_TRAIN_KEYS = ("acoustic_mem",)
+PASSIVE_KEYS = ("binSep_enc", "binSep_dec", "bin2mono_enc", "bin2mono_dec")
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    clip_param: float = 0.1
+    ppo_epoch: int = 4
+    num_mini_batch: int = 1
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.2
+    lr_pol: float = 1e-4
+    lr_sep: float = 5e-4
+    eps: float = 1e-5
+    max_grad_norm: float = 0.5
+    use_clipped_value_loss: bool = True
+    use_normalized_advantage: bool = True
+    use_gae: bool = True
+    gamma: float = 0.99
+    tau: float = 0.95
+
+
+def group_params(policy: Move2HearPolicy, keys) -> List[torch.nn.Parameter]:
+    """Parameters of the top-level submodules named in `keys`, in
+    ``named_parameters`` order."""
+    return [p for name, p in policy.named_parameters() if name.split(".")[0] in keys]
+
+
+class ClippedAdam:
+    """optax ``clip_by_global_norm -> scale_by_adam -> scale(-lr)`` over one
+    parameter group. A parameter the loss did not reach gets a zero gradient,
+    as in JAX, so its Adam moments still decay."""
+
+    def __init__(self, params: List[torch.nn.Parameter], max_grad_norm: float, eps: float):
+        self.params = list(params)
+        self.max_grad_norm = max_grad_norm
+        self.adam = torch.optim.Adam(self.params, lr=1.0, betas=(0.9, 0.999), eps=eps)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self, lr: float) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                            self.max_grad_norm / norm)
+        torch._foreach_mul_(grads, scale)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
+        self.adam.step()
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
+
+@dataclass
+class AgentState:
+    """The policy (parameters and BatchNorm statistics) and both optimizers."""
+
+    policy: Move2HearPolicy
+    opt_pol: ClippedAdam
+    opt_sep: ClippedAdam
+
+
+def make_optimizers(cfg: PPOConfig, policy: Move2HearPolicy):
+    return (
+        ClippedAdam(group_params(policy, POL_KEYS), cfg.max_grad_norm, cfg.eps),
+        ClippedAdam(group_params(policy, SEP_TRAIN_KEYS), cfg.max_grad_norm, cfg.eps),
+    )
+
+
+def create_agent_state(cfg: PPOConfig, policy: Move2HearPolicy) -> AgentState:
+    """Freezes the passive separators (no gradient, no optimizer state) and
+    builds both optimizers. The policy stays in eval mode for good (but for
+    its GRU, which has no mode-dependent layer): the passive U-Nets and,
+    without DDPPO, the acoustic memory use their BatchNorm running
+    statistics throughout training, as in JAX."""
+    for p in group_params(policy, PASSIVE_KEYS):
+        p.requires_grad_(False)
+    policy.eval()
+    # nn.GRU has no dropout, so its two modes compute the same; cuDNN's RNN
+    # backward runs only in training mode
+    policy.pol_net.state_encoder.rnn.train()
+    opt_pol, opt_sep = make_optimizers(cfg, policy)
+    return AgentState(policy, opt_pol, opt_sep)
+
+
+def load_pretrained_passive_separators(policy: Move2HearPolicy, state_dict: Dict[str, torch.Tensor]):
+    """Copy the four passive-separator subtrees by name from a port state
+    dict (ppo.py:59-70); shapes must match exactly."""
+    own = policy.state_dict()
+    for name, value in state_dict.items():
+        if name.split(".")[0] not in PASSIVE_KEYS:
+            continue
+        if name not in own or own[name].shape != value.shape:
+            raise ValueError(
+                f"shape mismatch in {name}: "
+                f"{tuple(own[name].shape) if name in own else None} vs {tuple(value.shape)}"
+            )
+        own[name].copy_(value)
+
+
+def _normalized_advantages(advantages: torch.Tensor, use_normalized: bool) -> torch.Tensor:
+    if not use_normalized:
+        return advantages
+    return (advantages - advantages.mean()) / (advantages.std() + EPS_PPO)
+
+
+def _epoch_perms(generator: Optional[torch.Generator], ppo_epoch: int, num_envs: int,
+                 num_mini_batch: int, device=None) -> torch.Tensor:
+    """(ppo_epoch * num_mini_batch, envs_per_batch) env-index table: each
+    epoch permutes the envs and splits them into minibatches
+    (rollout_storage.py:195-197)."""
+    assert num_envs >= num_mini_batch, (
+        f"need num_envs ({num_envs}) >= num_mini_batch ({num_mini_batch})"
+    )
+    envs_per = num_envs // num_mini_batch
+    perms = torch.stack([
+        torch.randperm(num_envs, generator=generator, device=device) for _ in range(ppo_epoch)
+    ])
+    return perms[:, : envs_per * num_mini_batch].reshape(-1, envs_per)
+
+
+def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
+                    pose_bank: bool = False):
+    """The policy update: ``update(state, rollouts, generator, lr_scale,
+    clip_scale, banks=None)`` runs ppo_epoch x num_mini_batch steps over the
+    rollout (``returns`` already computed) and returns the (value_loss,
+    action_loss, entropy) means over all minibatches as a (3,) tensor.
+
+    With `pose_bank` the observations carry an integer ``pose`` index in
+    place of the frames; each step runs the visual encoder once over the
+    S*V*4 poses of `banks` (with gradients) and gathers a row per step."""
+
+    def minibatch_loss(mb, clip_param, banks):
+        obs = mb["obs"]
+        if pose_bank:
+            def flat(b):
+                return None if b is None else b.reshape((-1,) + tuple(b.shape[3:]))
+
+            vis = policy.visual_features(flat(banks.get("rgb")), flat(banks.get("depth")))
+            obs = {k: v for k, v in obs.items() if k != "pose"}
+            obs["visual_feats"] = vis[mb["obs"]["pose"]]
+        values, log_probs, entropy, _ = policy.evaluate_actions(
+            obs, mb["hidden0"], mb["masks"], mb["actions"], mb["pred_binSepMasks"],
+            mb["pred_mono"], mb["pred_monoFromMem"],
+        )
+        ratio = torch.exp(log_probs - mb["old_log_probs"])
+        surr1 = ratio * mb["adv"]
+        surr2 = torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * mb["adv"]
+        if cfg.use_clipped_value_loss:
+            clipped = mb["value_preds"] + torch.clamp(
+                values - mb["value_preds"], -clip_param, clip_param
+            )
+            value_sq = torch.maximum(
+                torch.square(values - mb["returns"]), torch.square(clipped - mb["returns"])
+            )
+        else:
+            value_sq = torch.square(mb["returns"] - values)
+        action_loss = -torch.minimum(surr1, surr2).mean()
+        value_loss = 0.5 * value_sq.mean()
+        total = value_loss * cfg.value_loss_coef + action_loss - entropy * cfg.entropy_coef
+        return total, torch.stack([value_loss, action_loss, entropy]).detach()
+
+    def update(state: AgentState, rollouts, generator=None, lr_scale=1.0, clip_scale=1.0,
+               banks=None):
+        clip_param = cfg.clip_param * clip_scale
+        lr = cfg.lr_pol * lr_scale
+        adv_all = _normalized_advantages(
+            rollouts["returns"][:-1] - rollouts["value_preds"][:-1],
+            cfg.use_normalized_advantage,
+        )
+        # num_mini_batch == 1 (the published config): each minibatch is all
+        # envs, and a batch-mean gradient does not depend on their order, so
+        # no permuted gather
+        full_batch = cfg.num_mini_batch == 1
+        if full_batch:
+            perms = [None] * cfg.ppo_epoch
+        else:
+            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs, cfg.num_mini_batch,
+                                 device=adv_all.device)
+        aux = []
+        for idx in perms:
+            sel = slice(None) if idx is None else idx
+            mb = {
+                "obs": {k: v[:-1, sel] for k, v in rollouts["observations"].items()},
+                "hidden0": rollouts["hidden"][0, sel],
+                "masks": rollouts["masks"][:-1, sel],
+                "actions": rollouts["actions"][:, sel],
+                "pred_binSepMasks": rollouts["pred_binSepMasks"][:, sel],
+                "pred_mono": rollouts["pred_mono"][:, sel],
+                "pred_monoFromMem": rollouts["prev_pred_monoFromMem"][1:, sel],
+                "value_preds": rollouts["value_preds"][:-1, sel],
+                "returns": rollouts["returns"][:-1, sel],
+                "adv": adv_all[:, sel],
+                "old_log_probs": rollouts["action_log_probs"][:, sel],
+            }
+            state.opt_pol.zero_grad()
+            total, losses = minibatch_loss(mb, clip_param, banks)
+            total.backward()
+            state.opt_pol.step(lr)
+            aux.append(losses)
+        return torch.stack(aux).mean(dim=0)
+
+    return update

@@ -1,16 +1,47 @@
-"""The PPO trainer's eval surface: checkpoint evaluation on the device
-route (``rl/trainer.py:_eval_checkpoint`` of the JAX package). Training,
-the host evaluator and file-backed scene data are not ported yet and raise
-NotImplementedError."""
+"""The PPO trainer (``audio_separation/rl/ppo/ppo_trainer.py``; the JAX
+package's ``rl/trainer.py``): device-path training on the dense banks and
+checkpoint evaluation on the device route.
+
+Cyclic schedule (ppo_trainer.py:730-994): num_updates_per_cycle x
+(collect num_steps + policy update), then one cached separator refit over
+the cycle's buffer. Separation rewards only (near-target). Not ported yet,
+and raising NotImplementedError: the episode-keyed RIR sub-banks and the
+host env path (``TPU.RIR_MODE`` sub/host, banks over
+``TPU.MAX_DEVICE_BANK_BYTES``), DDPPO across processes (world size > 1),
+navigation rewards, the host evaluator and file-backed scene data.
+"""
 
 import logging
 import os
+import time
+from collections import deque
 
-from move2hear_tpu_torch.env.device_env import estimate_bank_bytes
+import numpy as np
+import torch
+
+import move2hear_tpu_torch.env.device_env as de
+from move2hear_tpu_torch.env.micro_scene import build_micro_scene
+from move2hear_tpu_torch.env.sim import Action
 from move2hear_tpu_torch.eval.device_evaluator import evaluate_checkpoint_device
+from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
-from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+from move2hear_tpu_torch.rl.device_rollout import (
+    RolloutSepIdx,
+    make_collect,
+    make_update_sep_from_slabs,
+    unpack_stats,
+    write_sep_slab,
+)
+from move2hear_tpu_torch.rl.ppo import (
+    PPOConfig,
+    create_agent_state,
+    load_pretrained_passive_separators,
+    make_update_pol,
+)
+from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from move2hear_tpu_torch.utils.misc import linear_decay
 from move2hear_tpu_torch.utils.registry import registry
+from move2hear_tpu_torch.utils.tb import TensorboardWriter
 
 logger = logging.getLogger(__name__)
 
@@ -27,6 +58,13 @@ def has_file_backed_data(task_config) -> bool:
     return has_episodes and os.path.isdir(task_config.SIMULATOR.AUDIO.META_DIR)
 
 
+def world_size() -> int:
+    """The torchrun-style world size of this process (1 when not set)."""
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return int(os.environ.get("SLURM_NTASKS", 1))
+
+
 @registry.register_trainer(name="ppo")
 class PPOTrainer(BaseRLTrainer):
     def __init__(self, config, bundle=None, device="cuda"):
@@ -35,6 +73,341 @@ class PPOTrainer(BaseRLTrainer):
         self.device = device
         self.last_eval = None  # (aggregates, timings) of the last checkpoint
 
+    # ------------------------------------------------------------------
+    def _ppo_config(self) -> PPOConfig:
+        p = self.config.RL.PPO
+        return PPOConfig(
+            clip_param=p.clip_param, ppo_epoch=p.ppo_epoch, num_mini_batch=p.num_mini_batch,
+            value_loss_coef=p.value_loss_coef, entropy_coef=p.entropy_coef,
+            lr_pol=p.lr_pol, lr_sep=p.lr_sep, eps=p.eps, max_grad_norm=p.max_grad_norm,
+            use_gae=p.use_gae, gamma=p.gamma, tau=p.tau,
+        )
+
+    def _make_bundle(self):
+        if self._bundle is not None:
+            return self._bundle
+        cfg = self.config
+        if has_file_backed_data(cfg.TASK_CONFIG):
+            raise NotImplementedError(
+                "file-backed scene data is not ported yet (ROADMAP Queue 1 item "
+                "3); the port trains on the synthetic micro-scene"
+            )
+        logger.warning("no scene bundle provided; using synthetic micro-scene")
+        self._bundle = build_micro_scene(
+            rows=4, cols=4, num_episodes=64, near_target=cfg.RL.PPO.sep_reward_weight == 1.0,
+            rir_length=cfg.TPU.MAX_RIR_LENGTH,
+        )
+        return self._bundle
+
+    def _new_policy(self) -> Move2HearPolicy:
+        """The policy with weights drawn from a generator seeded by
+        cfg.SEED, on the trainer's device."""
+        cfg, p = self.config, self.config.RL.PPO
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(cfg.SEED))
+            policy = Move2HearPolicy(
+                num_actions=len(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
+                hidden_size=p.hidden_size, extra_rgb=cfg.EXTRA_RGB,
+                extra_depth=cfg.EXTRA_DEPTH, use_ddppo=p.use_ddppo,
+            )
+        return policy.to(self.device)
+
+    # ------------------------------------------------------------------
+    def train(self) -> None:
+        """Dispatch to the device path on the dense banks, the one route
+        ported (RIR_MODE auto when the banks fit, or dense)."""
+        cfg = self.config
+        forced = str(cfg.TPU.RIR_MODE)
+        if forced not in ("auto", "dense", "sub", "host"):
+            raise ValueError(f"TPU.RIR_MODE must be auto|dense|sub|host, got {forced!r}")
+        if forced in ("sub", "host") or not cfg.TPU.DEVICE_ENV:
+            raise NotImplementedError(
+                f"TPU.RIR_MODE={forced} / DEVICE_ENV={cfg.TPU.DEVICE_ENV}: the "
+                "RIR sub-banks and the host env path are not ported yet "
+                "(ROADMAP Queue 1 items 2 and 3)"
+            )
+        if world_size() > 1:
+            raise NotImplementedError(
+                "DDPPO across processes (and its preemptive rollout sync) is "
+                "not ported yet (ROADMAP Queue 1 item 4)"
+            )
+        p = cfg.RL.PPO
+        if not (p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0):
+            raise NotImplementedError(
+                "navigation rewards (far-target training) are not ported yet "
+                "(ROADMAP Queue 1 item 3); the port trains with separation rewards"
+            )
+        bundle = self._make_bundle()
+        if forced == "auto" and de.estimate_bank_bytes(bundle) > int(cfg.TPU.MAX_DEVICE_BANK_BYTES):
+            raise NotImplementedError(
+                "the dense device banks exceed TPU.MAX_DEVICE_BANK_BYTES; the "
+                "RIR sub-banks and the host env path are not ported yet "
+                "(ROADMAP Queue 1 items 2 and 3)"
+            )
+        self._train_device()
+
+    def _train_device(self) -> None:
+        """The device training loop on the separate-programs route: per
+        cycle, `num_updates_per_cycle` x (collect + policy update), then the
+        cached separator refit. Per cycle it records, in
+        ``self.cycle_log``, the seconds of each phase and the env-steps it
+        ran. The phases are timed by marks on the device's timeline (CUDA
+        events, read at the stats fetch, so the loop never waits for the
+        device only to time it; the host clock on the CPU, which finishes
+        each op before it returns)."""
+        cfg = self.config
+        ppo_cfg = self._ppo_config()
+        p = cfg.RL.PPO
+        device = torch.device(self.device)
+        t_setup = time.perf_counter()
+
+        on_cuda = device.type == "cuda"
+
+        def mark():
+            if not on_cuda:
+                return time.perf_counter()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def secs(a, b):
+            return a.elapsed_time(b) * 1e-3 if on_cuda else b - a
+
+        bundle = self._make_bundle()
+        n_envs = cfg.NUM_PROCESSES
+        t_steps = p.num_steps
+        cycle = p.num_updates_per_cycle
+        max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
+        gt_norm = cfg.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM
+        action_codes = tuple(int(Action[a]) for a in cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
+
+        # the RIR-rfft cache only when the dense and rfft banks both fit the gate
+        rfft_on = bool(cfg.TPU.PRECOMPUTE_RIR_RFFT)
+        if rfft_on and de.estimate_bank_bytes(bundle) + de.estimate_rir_rfft_bytes(bundle) > int(
+            cfg.TPU.MAX_DEVICE_BANK_BYTES
+        ):
+            logger.info("PRECOMPUTE_RIR_RFFT: the rfft bank exceeds the gate; "
+                        "computing RIR FFTs per step instead")
+            rfft_on = False
+        dev = de.build_device_bundle(bundle, device, precompute_rir_rfft=rfft_on)
+        order = de.make_order_table(n_envs, len(bundle.episodes), cfg.SEED)
+        env_state = de.env_reset_all(dev.scene, dev.episodes, torch.as_tensor(order, device=device))
+
+        pol_sensors = ["mixed_bin_audio_mag", "target_class"]
+        pol_sensors += [k for k, b in (("rgb", dev.rgb_bank), ("depth", dev.depth_bank))
+                        if b is not None]
+
+        policy = self._new_policy()
+        state = create_agent_state(ppo_cfg, policy)
+        update_count = 0
+        resume_path = cfg.RESUME_CKPT
+        if resume_path:
+            ckpt = load_checkpoint(resume_path)
+            policy.load_state_dict(ckpt["state_dict"])
+            state.opt_pol.load_state_dict(ckpt["optimizer_pol"])
+            state.opt_sep.load_state_dict(ckpt["optimizer_sep"])
+            update_count = int(ckpt["extra_state"]["update_count"])
+            logger.info("resumed full train state from %s at update %d", resume_path, update_count)
+        elif p.pretrained_passive_separators_ckpt:
+            load_pretrained_passive_separators(
+                policy, load_checkpoint(p.pretrained_passive_separators_ckpt)["state_dict"]
+            )
+            logger.info("loaded pretrained passive separators")
+
+        # pose-indexed rollout observations whenever the collect's
+        # per-rollout visual-feature bank is active: the update then runs
+        # the visual conv stack once per epoch over the S*V*4 poses
+        frame_bank = dev.rgb_bank if dev.rgb_bank is not None else dev.depth_bank
+        pose_obs = (
+            frame_bank is not None
+            and policy.pol_net.visual_encoder is not None
+            and frame_bank.shape[0] * frame_bank.shape[1] * 4 <= n_envs * t_steps
+        )
+        collect = make_collect(
+            policy, ppo_cfg, t_steps, max_ep_steps, gt_norm, p.extra_reward_multiplier,
+            action_codes, tuple(pol_sensors), pose_obs=pose_obs,
+        )
+        update_pol = make_update_pol(policy, ppo_cfg, n_envs, pose_bank=pose_obs)
+        update_sep = make_update_sep_from_slabs(policy, ppo_cfg, cycle)
+        pol_banks = {"rgb": dev.rgb_bank, "depth": dev.depth_bank} if pose_obs else None
+        sep_buf = RolloutSepIdx.create(t_steps * cycle, n_envs, cfg.NUM_SOUNDS_IN_MIX,
+                                       device=device)
+        hidden = torch.zeros((n_envs, p.hidden_size), device=device)
+        masks = torch.ones((n_envs, 1), device=device)
+        prev_mem = torch.zeros((n_envs, 512, 32, 1), device=device)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(cfg.SEED))
+
+        win = p.reward_window_size
+        windows = {
+            k: deque(maxlen=win)
+            for k in ("reward", "steps", "mono_l2_last", "mono_l2_all", "mem_l2_last",
+                      "mem_l2_all", "bin_l2_all", "ndg", "dg")
+        }
+        cur_ep = {k: np.zeros((n_envs,)) for k in ("reward", "step", "bin", "mono", "mem")}
+        probs_win = deque(maxlen=win)
+        total_env_steps = 0
+        self.steady_fps = 0.0
+        steady_t0, steady_steps0 = None, 0
+        self.loss_log = []  # per cycle: (pol losses (cycle, 3), sep losses (cycle, 3))
+        self.cycle_log = []
+        num_cycles = max(1, (cfg.NUM_UPDATES - update_count) // cycle)
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        tb = TensorboardWriter(cfg.TENSORBOARD_DIR, flush_secs=30)
+        stats_interval = max(1, int(cfg.TPU.STATS_FETCH_INTERVAL))
+        pending = []  # (env_steps_after, update_count_after, packed, pol, sep, marks)
+        if on_cuda:
+            torch.cuda.synchronize(device)
+        self.setup_s = time.perf_counter() - t_setup
+        t_start = time.time()
+
+        for cycle_idx in range(num_cycles):
+            stats_list, pol_l = [], []
+            marks = [mark()]  # collect starts, collect ends, update ends, ..., refit ends
+            for sub in range(cycle):
+                idx = update_count + sub
+                lr_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
+                clip_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_clip_decay else 1.0
+                out = collect(dev, env_state, hidden, masks, prev_mem, generator)
+                env_state, hidden, masks, prev_mem = (
+                    out.env_state, out.hidden, out.masks, out.prev_mem_masked
+                )
+                write_sep_slab(sep_buf, out.sep_slab, sub * t_steps)
+                marks.append(mark())
+                pol_l.append(update_pol(state, out.rollouts_pol, generator, lr_scale,
+                                        clip_scale, banks=pol_banks))
+                marks.append(mark())
+                stats_list.append(out.stats)
+            sep_lrs = [
+                linear_decay(update_count + i, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
+                for i in range(cycle)
+            ]
+            sep_losses = update_sep(state, sep_buf, generator, sep_lrs)
+            marks.append(mark())
+            update_count += cycle
+            total_env_steps += cycle * t_steps * n_envs
+            pending.append((total_env_steps, update_count, torch.stack(stats_list),
+                            torch.stack(pol_l), sep_losses, marks))
+
+            if len(pending) >= stats_interval or cycle_idx == num_cycles - 1:
+                for steps_at, upd_at, packed, pol_h, sep_h, _ in pending:
+                    st = unpack_stats(packed.cpu().numpy())
+                    st_flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st.items()}
+                    self._absorb_stats(st_flat, windows, cur_ep)
+                    probs_win.append(st_flat["probs"].mean(axis=(0, 1)))
+                    pol_h, sep_h = pol_h.cpu().numpy(), sep_h.cpu().numpy()
+                    self.loss_log.append((pol_h, sep_h))
+                    lr_now = p.lr_pol * (
+                        linear_decay(upd_at, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
+                    )
+                    self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1],
+                                           lr_now, steps_at)
+                # the fetch above waited for every mark of the flushed cycles
+                for *_, m in pending:
+                    self.cycle_log.append({
+                        "collect": sum(secs(a, b) for a, b in zip(m[0:-1:2], m[1:-1:2])),
+                        "update": sum(secs(a, b) for a, b in zip(m[1:-1:2], m[2:-1:2])),
+                        "refit": secs(m[-2], m[-1]),
+                        "total": secs(m[0], m[-1]),
+                        "env_steps": cycle * t_steps * n_envs,
+                    })
+                pending.clear()
+                value_loss, action_loss, entropy = pol_h[-1]
+                bin_loss, mono_loss, mem_loss = sep_h[-1]
+                if (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
+                    fps = total_env_steps / max(1e-9, time.time() - t_start)
+                    logger.info(
+                        "update %d | fps %.1f (steady %.1f) | value %.4f action %.4f "
+                        "entropy %.3f | sep bin %.4f mono %.4f mem %.4f | win reward "
+                        "%.4f | win mem-L2(last) %.4f",
+                        update_count, fps, self.steady_fps, value_loss, action_loss, entropy,
+                        bin_loss, mono_loss, mem_loss,
+                        float(np.mean(windows["reward"])) if windows["reward"] else 0.0,
+                        float(np.mean(windows["mem_l2_last"])) if windows["mem_l2_last"] else 0.0,
+                    )
+                # steady-state fps, flush to flush: the fetch above waited
+                # for the flushed cycles, and the first flush excludes warm-up
+                if steady_t0 is None:
+                    steady_t0, steady_steps0 = time.time(), total_env_steps
+                elif total_env_steps > steady_steps0:
+                    self.steady_fps = (total_env_steps - steady_steps0) / (time.time() - steady_t0)
+
+            if cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
+                self._save(state, update_count, cycle_idx)
+
+        tb.close()
+        self._save(state, update_count, num_cycles)
+
+    # ------------------------------------------------------------------
+    def _write_tb_scalars(self, tb, windows, probs_win, pol_losses, sep_losses, lr_now, step):
+        """The reference's per-update training scalars (ppo_trainer.py:905-957)
+        and the separator refit losses."""
+        def wmean(k):
+            return float(np.mean(windows[k])) if len(windows[k]) else 0.0
+
+        tb.add_scalar("Environment/Reward", wmean("reward"), step)
+        tb.add_scalar("Environment/Episode_length", wmean("steps"), step)
+        if probs_win:
+            for i, v in enumerate(np.mean(np.stack(list(probs_win)), axis=0)):
+                tb.add_scalar(f"Policy/Action_prob_{i}", float(v), step)
+        for tag, k in (("mono_lastStep", "mono_l2_last"), ("mono_avgAllSteps", "mono_l2_all"),
+                       ("monoFromMem_lastStep", "mem_l2_last"),
+                       ("monoFromMem_avgAllSteps", "mem_l2_all")):
+            tb.add_scalar(f"Environment/STFT_L2_loss/{tag}", wmean(k), step)
+        tb.add_scalar("Environment/Normalized_geo_distance_to_target_audio_source",
+                      wmean("ndg"), step)
+        tb.add_scalar("Environment/Geo_distance_to_target_audio_source", wmean("dg"), step)
+        value_loss, action_loss, entropy = pol_losses
+        tb.add_scalar("Policy/Value_Loss", float(value_loss), step)
+        tb.add_scalar("Policy/Action_Loss", float(action_loss), step)
+        tb.add_scalar("Policy/Entropy", float(entropy), step)
+        tb.add_scalar("Policy/Learning_Rate", float(lr_now), step)
+        bin_loss, mono_loss, mem_loss = sep_losses
+        tb.add_scalar("Separator/Bin_Loss", float(bin_loss), step)
+        tb.add_scalar("Separator/Mono_Loss", float(mono_loss), step)
+        tb.add_scalar("Separator/MonoFromMem_Loss", float(mem_loss), step)
+
+    @staticmethod
+    def _absorb_stats(st, windows, cur_ep):
+        """Fold the unpacked (T_total, N) stat stacks into the reference's
+        windowed episode statistics (ppo_trainer.py:426-455)."""
+        for t in range(st["q"].shape[0]):
+            done = st["done"][t].astype(bool)
+            cur_ep["reward"] += st["reward"][t]
+            cur_ep["step"] += 1
+            cur_ep["bin"] += st["bin_l2"][t]
+            cur_ep["mono"] += st["mono_l2"][t]
+            cur_ep["mem"] += st["mem_l2"][t]
+            if done.any():
+                steps_i = np.maximum(cur_ep["step"][done], 1)
+                windows["reward"].extend(cur_ep["reward"][done])
+                windows["steps"].extend(steps_i)
+                windows["bin_l2_all"].extend(cur_ep["bin"][done] / steps_i)
+                windows["mono_l2_all"].extend(cur_ep["mono"][done] / steps_i)
+                windows["mem_l2_all"].extend(cur_ep["mem"][done] / steps_i)
+                windows["mono_l2_last"].extend(st["mono_l2"][t, done])
+                windows["mem_l2_last"].extend(st["mem_l2"][t, done])
+                windows["ndg"].extend(st["ndg"][t, done])
+                windows["dg"].extend(st["geo"][t, done])
+                for k in cur_ep:
+                    cur_ep[k][done] = 0.0
+
+    def _save(self, state, update_count, ckpt_idx):
+        """The port's training checkpoint (``utils/checkpoint.py``): the
+        evaluator reads ``state_dict`` and ``config``; ``RESUME_CKPT`` reads
+        all of it."""
+        save_checkpoint(
+            os.path.join(self.config.CHECKPOINT_FOLDER, f"ckpt.{ckpt_idx}.pth"),
+            {
+                "state_dict": state.policy.state_dict(),
+                "config": self.config.to_dict(),
+                "optimizer_pol": state.opt_pol.state_dict(),
+                "optimizer_sep": state.opt_sep.state_dict(),
+                "extra_state": {"update_count": update_count},
+            },
+        )
+
+    # ------------------------------------------------------------------
     def _eval_checkpoint(self, checkpoint_path: str, checkpoint_index: int = 0):
         """Merge the checkpoint's saved config per EVAL.USE_CKPT_CONFIG
         (switch-policy eval reads the nav policy's config), then run the
@@ -61,7 +434,7 @@ class PPOTrainer(BaseRLTrainer):
             and n_eps >= config.TPU.DEVICE_EVAL_MIN_EPISODES
         )
         if use_device and bundle is not None:
-            use_device = estimate_bank_bytes(bundle) <= int(config.TPU.MAX_DEVICE_BANK_BYTES)
+            use_device = de.estimate_bank_bytes(bundle) <= int(config.TPU.MAX_DEVICE_BANK_BYTES)
         if not use_device:
             raise NotImplementedError(
                 "the host evaluator (small episode counts, banks over "

@@ -5,6 +5,11 @@ dict and the config dict,
     {"state_dict_nav": ..., "state_dict_qualImprov": ...,
      "config_nav": ..., "config_qualImprov": ...}               # switch policy
 
+A training checkpoint adds both optimizer states and the update count,
+``{"optimizer_pol": ..., "optimizer_sep": ..., "extra_state":
+{"update_count": n}}``; the evaluator reads its ``state_dict`` and
+``config`` like any other, and ``RESUME_CKPT`` reads all of it.
+
 written atomically (temp file + rename) so a polling evaluator never reads
 a partial file. It does not read the JAX package's flax msgpack checkpoints;
 ``utils/params.py:from_jax`` converts their parameter trees."""

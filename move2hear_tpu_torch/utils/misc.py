@@ -1,8 +1,13 @@
-"""Small host-side utilities (``common/utils.py:100-125``)."""
+"""Small host-side utilities (``common/utils.py:53-125``)."""
 
 import glob
 import os
 from typing import Optional
+
+
+def linear_decay(epoch: int, total_num_updates: int) -> float:
+    """LR/clip multiplier decaying linearly to 0 (utils.py:53-63)."""
+    return 1.0 - (epoch / float(total_num_updates))
 
 
 def poll_checkpoint_folder(

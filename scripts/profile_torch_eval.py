@@ -23,6 +23,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUCKETS = (  # first match wins; names are CUDA kernel names
+    ("masked_mix_slice16_bwd", ("masked_mix_slice16_bwd",)),
     ("masked_mix_slice16", ("masked_mix_slice16",)),
     ("overlap_add", ("overlap_add",)),
     ("conv/gemm", ("conv", "gemm", "sm90", "cudnn", "cutlass", "xmma", "implicit", "winograd")),

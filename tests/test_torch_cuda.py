@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MM_CASES, OLA_CASES, mm_inputs, ola_call, ola_inputs
+from chip_smoke import MM_CASES, OLA_CASES, mm_bwd_inputs, mm_inputs, ola_call, ola_inputs
 from move2hear_tpu_torch.ops import kernels
 
 ATOL = 1e-5  # float32 elementwise math; the plain versions use the same formulas
@@ -83,3 +83,51 @@ def test_wrappers_refuse_grids_over_their_limits(cuda):
         kernels.masked_mix_slice16(x, x)
     with pytest.raises(ValueError):
         kernels.overlap_add(torch.zeros((65536, 1, 16), device=cuda), n_fft=16, hop=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(MM_CASES))
+def test_masked_mix_slice16_bwd_kernel_edge_shapes(cuda, label):
+    g, mix, mask = mm_bwd_inputs(torch, MM_CASES[label])
+    before = kernels.masked_mix_slice16_bwd.launches
+    dmix, dmask = kernels.masked_mix_slice16_bwd(g, mix, mask)
+    torch.cuda.synchronize()
+    assert kernels.masked_mix_slice16_bwd.launches == before + 1
+    pmix, pmask = kernels.masked_mix_slice16_bwd_plain(g, mix, mask)
+    torch.testing.assert_close(dmix, pmix, atol=ATOL, rtol=0)
+    torch.testing.assert_close(dmask, pmask, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_masked_mix_slice16_function_gradient_matches_plain_autograd(cuda):
+    """The autograd.Function's backward (the kernel) against autograd through
+    the plain forward, in float32, at the path shape and at C=1."""
+    for label in ("path", "C=1"):
+        mix, mask = mm_inputs(torch, MM_CASES[label])
+        g = torch.randn(kernels.masked_mix_slice16_plain(mix, mask).shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+        grads = []
+        for fn in (kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain):
+            a, b = mix.clone().requires_grad_(True), mask.clone().requires_grad_(True)
+            fn(a, b).backward(g)
+            grads.append((a.grad, b.grad))
+        torch.cuda.synchronize()
+        for ours, ref in zip(*grads):
+            torch.testing.assert_close(ours, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_masked_mix_slice16_output_carries_a_grad_fn(cuda):
+    """The output from inputs that require a gradient is part of the graph
+    (the kernel writes through ctypes, so without the autograd.Function the
+    gradient would be cut silently), and the backward goes through the
+    kernel."""
+    mix, mask = mm_inputs(torch, MM_CASES["path"])
+    mix.requires_grad_(True)
+    out = kernels.masked_mix_slice16(mix, mask)
+    assert out.grad_fn is not None
+    before = kernels.masked_mix_slice16_bwd.launches
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.masked_mix_slice16_bwd.launches == before + 1
+    assert mix.grad is not None and torch.isfinite(mix.grad).all()

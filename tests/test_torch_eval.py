@@ -162,7 +162,9 @@ def test_cli_eval_on_cpu_uses_the_checkpoints_own_opts(tmp_path):
     assert timings["episodes"] == 2 and timings["env_steps"] == 2 * 2
     assert os.path.exists(tmp_path / "test_nearTarget_stats_ckpt_0_0.json")
     # CPU tensors take the plain versions: no kernel launched
-    assert kernels.launch_counts() == {"masked_mix_slice16": 0, "overlap_add": 0}
+    assert kernels.launch_counts() == {
+        "masked_mix_slice16": 0, "overlap_add": 0, "masked_mix_slice16_bwd": 0,
+    }
 
 
 def test_trainer_polls_a_checkpoint_folder(tmp_path):
