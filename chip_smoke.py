@@ -24,20 +24,40 @@ Phases, each printing its own line(s) with its seconds:
   5. parity: a short eval on the card (TF32 off) against the same eval on
      the CPU's plain path: equal deterministic actions, STFT-L2 and SI-SDR
      within tolerance;
-  6. train: ``move2hear_tpu_torch.main --run-type train`` with
+  6. pretrain: ``move2hear_tpu_torch.main --run-type train`` with
+     configs/pretrain_passive.yaml at full width (the four passive U-Nets,
+     BATCH_SIZE 64, the trainer's synthetic sources) for 3 epochs from
+     seeded random weights: set-up seconds, the cold first epoch, warm
+     pretrain samples/s (train samples of epochs 2-3 over their wall time),
+     finite losses, both best-on-val checkpoints written, BatchNorm running
+     statistics moved, launch counters equal to PRETRAIN_LAUNCHES;
+  7. pretrain-eval: ``--run-type eval`` of the pretrain config on the
+     checkpoint directory (PRETRAIN_EVAL_LAUNCHES);
+  8. train: ``move2hear_tpu_torch.main --run-type train`` with
      configs/train/nearTarget.yaml at full width (hidden 512, 14 envs, 20
-     steps, 6 updates a cycle, 4 epochs) for 2 cycles from seeded random
-     weights; set-up seconds, per-cycle seconds of collect, policy update
-     and refit, warm (second-cycle) env-steps/s, finite losses, launch
-     counters equal to TRAIN_LAUNCHES; then the eval CLI on the checkpoint
-     it wrote;
-  7. train-parity: one PPO update and one separator refit on one injected
+     steps, 6 updates a cycle, 4 epochs) for 2 cycles, its passive
+     separators loaded from phase 6's best_ckpt_nonoverlapping_val.pth (and
+     equal to it after training); set-up seconds, per-cycle seconds of
+     collect, policy update and refit, warm (second-cycle) env-steps/s,
+     finite losses, launch counters equal to TRAIN_LAUNCHES; then the eval
+     CLI on the checkpoint it wrote;
+  9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
-     same on the CPU in float64: losses and each parameter tensor's change
-     from the starting weights within 1e-4 relative (in norm); beside it
-     the CPU's float32 run, a CPU run fed the card's kernel outputs, and
-     the ReLU units where a float32 run takes another sign than float64;
-  8. one JSON line {"kernels": [...]}, then the last line
+     same on the CPU in float64: losses within 1e-4 relative, and every
+     parameter tensor's change within TRAIN_DP_TOL in norm of a float64 run
+     that takes the card's side of every ReLU (the CPU's float32 run
+     likewise against its own such twin), while the same update with TF32
+     on must read outside it; beside it the plain float64 run and the ReLU
+     units where a float32 run takes another sign than float64;
+ 10. pretrain-parity: one pretrain train step and one eval step at full
+     width and B=16 on the card (TF32 off) against the same on the CPU in
+     float64: losses within 1e-4 relative; per tensor, in norm, gradients
+     and BatchNorm-statistic changes within 1e-4 of a float64 run that
+     takes the card's side of every ReLU, LeakyReLU and L1 kink, and
+     parameter changes within 1e-4 of a float64 Adam step from the card's
+     gradients; the plain float64 and the CPU's float32 runs printed
+     beside it;
+ 11. one JSON line {"kernels": [...]}, then the last line
      {"ok": true, "device": {...}}.
 Any failure exits non-zero before the last line. Without a GPU, or without
 the package beside this file, it fails at once.
@@ -59,6 +79,12 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20       # H100 SXM L2 cache
 KERNEL_TOL = 1e-5           # float32 elementwise math, same formulas as plain
 TRAIN_TOL = 1e-4            # relative, CUDA (TF32 off) vs CPU float64 after one update and refit
+# phase 9's parameter change, in norm, of a float32 update and refit against
+# float64 on the same ReLU sides: the sound runs (the card with TF32 off, the
+# CPU) read up to 1.5e-4 at full width, in the bin encoder's dense layer
+# whose gradient entries sit near Adam's eps; TF32 on, the control, must
+# read above it.
+TRAIN_DP_TOL = 3e-4
 REPLACES = {
     "masked_mix_slice16": "move2hear_tpu/ops/pallas_kernels.py:85",
     "overlap_add": "move2hear_tpu/ops/pallas_kernels.py:186",
@@ -74,16 +100,27 @@ EVAL_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 80, "masked_mix_slice
 # the stored inputs need no gradient, so the backward never runs, and
 # training computes no ISTFT.
 TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# pretrain: 3 epochs x (256 // 64 = 4 train steps + 1 val and 1
+# nonoverlapping-val batch of 64) = 18, one in the bin2mono encoder each;
+# its masks enter detached (the JAX package's stop_gradient), and the
+# mixture is rendered data, so no gradient reaches the kernel's inputs and
+# the backward never runs; no ISTFT.
+PRETRAIN_EPOCHS = 3
+PRETRAIN_LAUNCHES = {"masked_mix_slice16": 18, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# pretrain-eval: its 2 best checkpoints x 2 validation batches of 64.
+PRETRAIN_EVAL_LAUNCHES = {"masked_mix_slice16": 4, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
 # Shapes each kernel is held to on the card. The first is the eval path's
 # (one launch per separator call at 16 envs; the step's five ISTFTs of 16
 # envs in one trimmed overlap-add); masked_mix_slice16's "train" is the PPO
-# epoch's (20 steps x 14 envs flattened). The backward is held at every
+# epoch's (20 steps x 14 envs flattened), "pretrain" a pretrain batch. The
+# backward is held at every
 # masked_mix_slice16 shape. masked_mix_slice16: (B, F, T, C, storage
 # offset in floats); overlap_add: (B, n_frames, n_fft, hop, start, length or
 # None for the whole signal, storage offset in floats).
 MM_CASES = {
     "path": (16, 512, 32, 2, 0),
     "train": (280, 512, 32, 2, 0),
+    "pretrain": (64, 512, 32, 2, 0),
     "B=1": (1, 512, 32, 2, 0),
     "C=1": (2, 512, 32, 1, 0),
     "C=3": (2, 64, 8, 3, 0),
@@ -289,7 +326,7 @@ def time_phase(torch, kernels, errs):
     """Phase 3b: times and bounds at the paths' shapes (and overlap_add at
     the whole-signal B=16 shape it was first timed at). Returns the JSON
     rows, one per kernel: the forwards at the eval path's shapes, the
-    backward at the training shape."""
+    backward at the training shape; the other shapes are printed."""
     empty = build_empty()
     timed = [  # name, label, kernel, plain, inputs, work
         ("masked_mix_slice16", "path", kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain,
@@ -297,6 +334,9 @@ def time_phase(torch, kernels, errs):
         ("masked_mix_slice16", "train", kernels.masked_mix_slice16,
          kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["train"]),
          mm_work(MM_CASES["train"])),
+        ("masked_mix_slice16", "pretrain", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["pretrain"]),
+         mm_work(MM_CASES["pretrain"])),
         ("masked_mix_slice16_bwd", "train", kernels.masked_mix_slice16_bwd,
          kernels.masked_mix_slice16_bwd_plain, mm_bwd_inputs(torch, MM_CASES["train"]),
          mm_bwd_work(MM_CASES["train"])),
@@ -426,25 +466,119 @@ def slice_phase(torch, kernels, card, run_dir):
     return counts
 
 
-TRAIN_EXP = os.path.join(REPO, "configs", "train", "nearTarget.yaml")
-TRAIN_OPTS = ["NUM_UPDATES", "12", "RL.PPO.pretrained_passive_separators_ckpt", ""]
+PRETRAIN_EXP = os.path.join(REPO, "configs", "pretrain_passive.yaml")
 
 
-def train_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=TRAIN_LAUNCHES):
-    """Phase 6: the train CLI at full width for 2 cycles, with the launch
-    counters set to 0 just before it and read just after; then the eval CLI
-    on the checkpoint it wrote. Returns the train path's launch counts.
+def pretrain_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
+                   launches=PRETRAIN_LAUNCHES):
+    """Phase 6: the pretrain CLI at full width for PRETRAIN_EPOCHS epochs,
+    with the launch counters set to 0 just before it and read just after.
+    Returns (the pretrain path's launch counts, its checkpoint folder).
     (`device`, `opts` and `launches` let a rehearsal run it small on the
     CPU.)"""
     import numpy as np
 
     from move2hear_tpu_torch.main import main as port_main
+    from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = port_main(["--run-type", "train", "--exp-config", PRETRAIN_EXP, "--model-dir",
+                         run_dir, "--device", device, "Pretrain.Passive.NUM_EPOCHS",
+                         str(PRETRAIN_EPOCHS), *opts])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    if counts != launches:
+        fail(f"pretrain-path kernel launches {counts}, expected {launches}")
+    epochs = trainer.epoch_log
+    if len(epochs) != PRETRAIN_EPOCHS:
+        fail(f"pretrain ran {len(epochs)} epochs, expected {PRETRAIN_EPOCHS}")
+    for i, (e, h) in enumerate(zip(epochs, trainer._val_history)):
+        if not np.isfinite([*h["train"], *h["val"], *h["nonoverlapping_val"]]).all():
+            fail(f"pretrain epoch {i}: losses not finite: {h}")
+        phase("pretrain", t0, (
+            f"epoch {i} ({'cold' if i == 0 else 'warm'}): {e['train_samples']} train samples and "
+            f"2 val batches in {e['seconds']:.3f} s; train bin {h['train'][0]:.6f} mono "
+            f"{h['train'][1]:.6f}, val mono {h['val'][1]:.6f}, nonoverlapping val mono "
+            f"{h['nonoverlapping_val'][1]:.6f} ({card})"
+        ))
+    warm = epochs[1:]
+    rate = sum(e["train_samples"] for e in warm) / sum(e["seconds"] for e in warm)
+    print(f"pretrain: set-up {trainer.setup_s:.3f} s, cold first epoch {epochs[0]['seconds']:.3f} s, "
+          f"warm pretrain {rate:.1f} samples/s (epochs 2-{len(epochs)}; {card}), end to end "
+          f"{wall:.3f} s; pretrain-path launches: {counts}", flush=True)
+    folder = trainer.config.CHECKPOINT_FOLDER
+    for name in ("best_ckpt_val.pth", "best_ckpt_nonoverlapping_val.pth"):
+        path = os.path.join(folder, name)
+        if not os.path.exists(path):
+            fail(f"pretrain wrote {sorted(os.listdir(folder))}, not {name}")
+        ckpt = load_checkpoint(path)
+        for net in ("binSep_enc", "binSep_dec", "bin2mono_enc", "bin2mono_dec"):
+            stats = [(k, v) for k, v in ckpt["state_dict"].items()
+                     if k.startswith(net + ".") and "running_" in k]
+            moved = [bool((v != (1.0 if k.endswith("var") else 0.0)).any()) for k, v in stats]
+            if not stats or not all(moved):
+                fail(f"pretrain {name}: BatchNorm statistics of {net} did not all move")
+        print(f"pretrain {name}: epoch {ckpt['extra_state']['epoch']}, BatchNorm running "
+              f"statistics of all four U-Nets moved", flush=True)
+    return counts, folder
+
+
+def pretrain_eval_phase(torch, kernels, ckpt_dir, run_dir, device="cuda", opts=(),
+                        launches=PRETRAIN_EVAL_LAUNCHES):
+    """Phase 7: the eval CLI of the pretrain config on the pretrain's
+    checkpoint directory, with the launch counters set to 0 just before it
+    and read just after. Returns its launch counts."""
+    import numpy as np
+
+    from move2hear_tpu_torch.main import main as port_main
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    ev = port_main(["--run-type", "eval", "--exp-config", PRETRAIN_EXP, "--model-dir",
+                    os.path.join(run_dir, "pretrain_eval"), "--device", device,
+                    "EVAL_CKPT_PATH_DIR", ckpt_dir, *opts])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts != launches:
+        fail(f"pretrain-eval kernel launches {counts}, expected {launches}")
+    if len(ev.last_eval) != 2:
+        fail(f"pretrain-eval evaluated {sorted(ev.last_eval)}, not the two best checkpoints")
+    for path, res in ev.last_eval.items():
+        vals = [v for split in res.values() for v in split.values()]
+        if not (os.path.exists(path + ".eval.json") and np.isfinite(vals).all()):
+            fail(f"pretrain-eval of {path}: no .eval.json or losses not finite: {res}")
+        phase("pretrain-eval", t0, f"{os.path.basename(path)}: " + ", ".join(
+            f"{split} bin {r['bin_loss']:.6f} mono {r['mono_loss']:.6f}" for split, r in res.items()))
+    return counts
+
+
+TRAIN_EXP = os.path.join(REPO, "configs", "train", "nearTarget.yaml")
+TRAIN_OPTS = ["NUM_UPDATES", "12"]
+
+
+def train_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=TRAIN_LAUNCHES,
+                pretrained=""):
+    """Phase 8: the train CLI at full width for 2 cycles, its passive
+    separators loaded from the `pretrained` checkpoint (seeded random ones
+    when it is ""), with the launch counters set to 0 just before it and
+    read just after; then the eval CLI on the checkpoint it wrote. Returns
+    the train path's launch counts. (`device`, `opts` and `launches` let a
+    rehearsal run it small on the CPU.)"""
+    import numpy as np
+
+    from move2hear_tpu_torch.main import main as port_main
+    from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 
     dev_args = ["--device", device]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
     trainer = port_main(["--run-type", "train", "--exp-config", TRAIN_EXP, "--model-dir", run_dir,
-                         *dev_args, *TRAIN_OPTS, *opts])
+                         *dev_args, *TRAIN_OPTS, "RL.PPO.pretrained_passive_separators_ckpt",
+                         pretrained, *opts])
     if device == "cuda":
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -476,6 +610,15 @@ def train_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=
     ckpt = os.path.join(trainer.config.CHECKPOINT_FOLDER, f"ckpt.{len(cycles)}.pth")
     if not os.path.exists(ckpt):
         fail(f"train wrote {ckpts}, not ckpt.{len(cycles)}.pth")
+    if pretrained:
+        pre = load_checkpoint(pretrained)["state_dict"]
+        got = load_checkpoint(ckpt)["state_dict"]
+        bad = [k for k, v in pre.items() if not torch.equal(got[k], v)]
+        if bad:
+            fail(f"train: {len(bad)} passive-separator tensors differ from {pretrained}: {bad[:3]}")
+        print(f"train started from {os.path.basename(pretrained)}: its {len(pre)} passive-separator "
+              f"tensors (BatchNorm statistics included) are unchanged in {os.path.basename(ckpt)}",
+              flush=True)
     t1 = time.perf_counter()
     ev = port_main(["--run-type", "eval", "--exp-config",
                     os.path.join(REPO, "configs", "test", "nearTarget.yaml"),
@@ -559,25 +702,29 @@ def synthetic_sep_slab(seed, t, n):
 
 
 def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
-    """Phase 7: one PPO update (4 epochs, pose bank) and one separator refit
+    """Phase 9: one PPO update (4 epochs, pose bank) and one separator refit
     (4 grad steps) on one injected full-width rollout (20 steps x 14 envs,
     hidden 512), from the same seeded weights, in five runs: A on
-    devices[0] (the card, TF32 off); A' the same again; B on devices[1]
-    (the CPU); C as B but with the bin encoder fed A's masked_mix_slice16
-    outputs in place of its own; D as B in float64, the reference. (`devices`
-    and the sizes let a rehearsal run it small on the CPU.)
+    devices[0] (the card, TF32 off); B on devices[1] (the CPU); D as B in
+    float64, the reference; D|A as D, but every ReLU passes or zeroes its
+    input as A's did in the same call (float64 arithmetic on A's branches);
+    D|B the same on B's branches. On a card, a control T as A with TF32 on,
+    and D|T on T's branches. (`devices` and the sizes let a rehearsal run it
+    small on the CPU.)
 
     A pair is read on its losses (relative) and, per parameter tensor, on
-    the change from the starting weights: ||dp_x - dp_y|| / ||dp_y||, and
-    element by element max |p_x - p_y| / (|p_y| + lr). Gates: the losses of
-    A against B and against D, and dp of every tensor of A against D,
-    within TRAIN_TOL. Printed beside them: A against A' (the card's own
-    spread), B against C (what the update makes of the kernel's roundings
-    alone), B against D (the CPU's float32 against float64), A against B,
-    and each float32 run's ReLU units whose sign differs from D's, by
-    module and epoch, with D's pre-activation there. Where a float32 run
-    flips a unit, the gradients it feeds part from there, and Adam (eps
-    1e-5) carries that into later steps; such a run is not held to D."""
+    the change from the starting weights: dp = ||dp_x - dp_y|| / ||dp_y||
+    (and, printed, element by element max |p_x - p_y| / (|p_y| + lr)).
+    Gates: the losses of A against B and against D within TRAIN_TOL; dp of
+    every tensor of A against D|A and of B against D|B within TRAIN_DP_TOL;
+    and dp of T against D|T above TRAIN_DP_TOL, so the gate is shown to
+    fail a lower precision. Printed beside them: A against D, B against D,
+    A against B, and each float32 run's ReLU units whose sign differs from
+    D's, by module and epoch, with D's pre-activation there. Where a float32
+    run flips a unit whose float64 input is within rounding of zero, the
+    gradients it feeds part from there, and Adam (eps 1e-5) carries that
+    into later steps by far more than rounding: so the gate holds each
+    float32 run to the float64 run on its own branches."""
     import numpy as np
 
     import move2hear_tpu_torch.models.audio_cnn as audio_cnn
@@ -600,10 +747,11 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
     lr = {k: cfg.lr_sep if k.startswith("acoustic_mem.") else cfg.lr_pol for k in start}
     kernel = audio_cnn.masked_mix_slice16
 
-    def run(name, feed=None, dtype=torch.float32):
+    def run(name, dtype=torch.float32, follow=None, tf32=False):
         """(losses, parameters, bin-encoder inputs, ReLU inputs by module)
-        of one update and refit; with `feed`, the bin encoder takes feed[i]
-        as its i-th input."""
+        of one update and refit; with `follow` (another run's ReLU inputs by
+        module), each ReLU call keeps its input where that run's was
+        positive and zeroes it elsewhere."""
         dev = torch.device(name)
         seen, relu_in = [], {}
 
@@ -616,7 +764,7 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
         def bin_input(mix, mask):
             out = kernel(mix, mask)
             seen.append(out.detach().cpu())
-            return out if feed is None else feed[len(seen) - 1].to(out.device, out.dtype)
+            return out
 
         policy = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True)
         policy.load_state_dict(weights)
@@ -627,6 +775,11 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
                 hooks.append(m.register_forward_hook(
                     lambda m, i, o, mname=mname: relu_in.setdefault(mname, []).append(
                         i[0].detach().double().cpu())))
+                if follow is not None:
+                    signs = iter(follow.get(mname, ()))
+                    hooks.append(m.register_forward_hook(
+                        lambda m, i, o, signs=signs: torch.where(
+                            next(signs).to(i[0].device) > 0, i[0], torch.zeros_like(i[0]))))
             elif dtype != torch.float32 and isinstance(m, torch.nn.Conv2d):
                 # the visual encoder casts its frames to float32
                 hooks.append(m.register_forward_pre_hook(
@@ -635,6 +788,7 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
         audio_cnn.masked_mix_slice16 = bin_input
         default = torch.get_default_dtype()
         torch.set_default_dtype(dtype)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
         try:
             pol = make_update_pol(policy, cfg, n, pose_bank=True)(state, on(roll), banks=on(banks))
             buf = RolloutSepIdx.create(t, n, 2, device=dev)
@@ -644,17 +798,21 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
         finally:
             audio_cnn.masked_mix_slice16 = kernel
             torch.set_default_dtype(default)
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
             for h in hooks:
                 h.remove()
         return (torch.cat([pol.reshape(-1), sep.reshape(-1)]).cpu().double().numpy(),
                 {k: v.detach().cpu().double().numpy() for k, v in policy.state_dict().items()
                  if v.is_floating_point()}, seen, relu_in)
 
-    runs = {"A": run(devices[0])}
-    runs["A'"] = run(devices[0])
-    runs["B"] = run(devices[1])
-    runs["C"] = run(devices[1], feed=runs["A"][2])
+    control = torch.device(devices[0]).type == "cuda"
+    runs = {"A": run(devices[0]), "B": run(devices[1])}
     runs["D"] = run(devices[1], dtype=torch.float64)
+    runs["D|A"] = run(devices[1], dtype=torch.float64, follow=runs["A"][3])
+    runs["D|B"] = run(devices[1], dtype=torch.float64, follow=runs["B"][3])
+    if control:
+        runs["T"] = run(devices[0], tf32=True)
+        runs["D|T"] = run(devices[1], dtype=torch.float64, follow=runs["T"][3])
     fed = max(float((a - b).abs().max()) for a, b in zip(runs["A"][2], runs["B"][2]))
     n_diff = sum(int((a != b).sum()) for a, b in zip(runs["A"][2], runs["B"][2]))
     n_all = sum(a.numel() for a in runs["A"][2])
@@ -686,23 +844,183 @@ def train_parity_phase(torch, devices=("cuda", "cpu"), t=20, n=14, hid=512):
         print(f"train-parity {x} vs D: ReLU units of another sign (module#call: count, largest "
               f"|D input| there): {out or 'none'}", flush=True)
 
-    readings = {pair: compare(*pair) for pair in (
-        ("A", "D"), ("A", "A'"), ("B", "C"), ("B", "D"), ("A", "B"))}
+    pairs = [("A", "D|A"), ("B", "D|B"), ("A", "D"), ("B", "D"), ("A", "B")]
+    readings = {pair: compare(*pair) for pair in pairs + [("T", "D|T")] * control}
     flips("A")
     flips("B")
     for pair in (("A", "D"), ("A", "B")):
         if not readings[pair][0] <= TRAIN_TOL:
             fail(f"train-parity {pair[0]} vs {pair[1]}: losses rel err {readings[pair][0]} "
                  f"(tol {TRAIN_TOL})")
-    key, dp = readings[("A", "D")][1]
-    if not dp <= TRAIN_TOL:
-        fail(f"train-parity A vs D: parameter change of {key} differs by {dp} relative in "
-             f"norm (tol {TRAIN_TOL})")
+    for x, y in pairs[:2]:
+        key, dp = readings[(x, y)][1]
+        if not dp <= TRAIN_DP_TOL:
+            fail(f"train-parity {x} vs {y}: parameter change of {key} differs by {dp} "
+                 f"relative in norm (tol {TRAIN_DP_TOL})")
+    if control and not readings[("T", "D|T")][1][1] > TRAIN_DP_TOL:
+        fail(f"train-parity control: TF32 on reads {readings[('T', 'D|T')][1]}, inside the "
+             f"gate (tol {TRAIN_DP_TOL}), so the gate cannot tell a lower precision")
+    (ka, dpa), (kb, dpb) = readings[("A", "D|A")][1], readings[("B", "D|B")][1]
     phase("train-parity", t0, (
         f"A {devices[0]} vs D {devices[1]} float64, one update (4 epochs) + one refit (4 "
-        f"steps) over ({t}, {n}) at hidden {hid}: losses and every parameter change within "
-        f"{TRAIN_TOL} (largest {dp:.3e}, {key}); bin-encoder inputs of A and B differ in "
-        f"{n_diff} of {n_all} elements, by at most {fed:.3e}"
+        f"steps) over ({t}, {n}) at hidden {hid}: losses within {TRAIN_TOL} of D; every "
+        f"parameter change within {TRAIN_DP_TOL} in norm of the float64 run on its own ReLU "
+        f"sides (A {dpa:.3e}, {ka}; B {dpb:.3e}, {kb}; A against D {readings[('A', 'D')][1][1]:.3e})"
+        + (f"; TF32 control {readings[('T', 'D|T')][1][1]:.3e} ({readings[('T', 'D|T')][1][0]}), "
+           f"outside it" if control else "")
+        + f"; bin-encoder inputs of A and B differ in {n_diff} of {n_all} elements, by at most "
+        f"{fed:.3e}"
+    ))
+
+
+def pretrain_parity_phase(torch, devices=("cuda", "cpu"), b=16):
+    """Phase 10: one pretrain train step and one eval step at full width
+    (the four U-Nets) and batch `b`, from the same seeded weights and numpy
+    batches (the default train source), in four runs: A on devices[0] (the
+    card, TF32 off); B on devices[1] (the CPU) in float32; D as B in
+    float64; D|A as D, but every ReLU and LeakyReLU unit and every L1 term
+    takes the side A took in the same call (float64 arithmetic on A's
+    branches). All four take one float32 render of each batch, the CPU's
+    (two renders differ by f16 ulps; the render itself is held card against
+    CPU by phase 5). (`devices` and `b` let a rehearsal run it small.)
+
+    Gates, each within TRAIN_TOL: the losses of both steps, A against D;
+    per tensor, in norm, A's gradient against D|A's and A's change of every
+    BatchNorm statistic against D|A's; and every parameter of A after the
+    step against a float64 Adam step taken from A's own gradients, element
+    by element relative to |p| + lr (a float32 parameter near 1 holds a
+    change of lr = 5e-4 only to 1.2e-4 of itself). A's parameters against
+    D's are printed beside them, not gated: the L1 loss's gradient is a
+    sign, so one term that a float32 prediction puts on the other side of
+    its target moves a gradient by about 2/sqrt(terms) (0.4% at B=16), and
+    training-mode BatchNorm cancels most of the gradient of the layers
+    before it, so entries near Adam's eps (1e-5) carry float32 rounding into
+    the step times lr / 1e-5 (1.0e-4 to 2.5e-3 of |p| + lr between the
+    CPU's float32 and float64 runs at B=16)."""
+    import numpy as np
+
+    import move2hear_tpu_torch.pretrain.trainer as pretrain_trainer
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.models import Move2HearPassiveWoMemoryPolicy
+    from move2hear_tpu_torch.pretrain.dataset import SyntheticPassiveSource
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(PRETRAIN_EXP, ["Pretrain.Passive.BATCH_SIZE", str(b)],
+                     os.path.join(REPO, "_smoke_run"), None)
+    src = SyntheticPassiveSource(num_datapoints=256, seed=0)
+    rng = np.random.default_rng(SEED + 6)
+    batches = (src.sample_batch(rng, b), src.sample_batch(rng, b, deterministic=True))
+    weights = Move2HearPassiveWoMemoryPolicy(
+        generator=torch.Generator().manual_seed(SEED + 7)).state_dict()
+    start = {k: v.double().numpy() for k, v in weights.items() if v.is_floating_point()}
+
+    def trainer_on(name):
+        return pretrain_trainer.PassiveTrainer(
+            cfg, sources=dict.fromkeys(("train", "val", "nonoverlapping_val"), src), device=name,
+            weights=weights)
+
+    cpu = trainer_on(devices[1])
+    rendered = [cpu.render(cpu.to_device(batch)) for batch in batches]
+
+    def run(name, dtype=torch.float32, follow=None):
+        """(losses, gradients, state, kink sides by site) of one train and
+        one eval step; with `follow` (another run's kink sides), every kink
+        takes that run's side."""
+        trainer = trainer_on(name)
+        policy = trainer.new_policy().to(dtype)
+        opt = trainer.new_optimizer(policy)
+        sides, hooks = {}, []
+
+        def side(site, x, on_pos, on_neg):
+            """Record which side of its kink each element of x is on, and
+            evaluate the branch there (the followed run's side if any)."""
+            calls = sides.setdefault(site, [])
+            pos = (x > 0) if follow is None else follow[site][len(calls)].to(x.device)
+            calls.append((x > 0).cpu())
+            return torch.where(pos, on_pos, on_neg)
+
+        for mname, m in policy.named_modules():
+            if isinstance(m, (torch.nn.ReLU, torch.nn.LeakyReLU)):
+                slope = m.negative_slope if isinstance(m, torch.nn.LeakyReLU) else 0.0
+                hooks.append(m.register_forward_hook(
+                    lambda m, i, o, mname=mname, slope=slope: side(mname, i[0], i[0], slope * i[0])))
+        # L1 with its kink recorded under the target's name
+        loss = {k: (lambda p, t, k=k: (lambda d: side(f"l1:{k}", d, d, -d).mean())(p - t))
+                for k in pretrain_trainer.LOSS_TARGETS}
+        try:
+            train_in, eval_in = ({k: v.to(name) for k, v in r.items()} for r in rendered)
+            losses = [trainer.train_step(policy, opt, train_in, loss)]
+            grads = {n: p.grad.detach().cpu().double().numpy() for n, p in policy.named_parameters()}
+            losses.append(trainer.eval_step(policy, eval_in, loss))
+        finally:
+            for h in hooks:
+                h.remove()
+        return (torch.cat(losses).cpu().double().numpy(), grads,
+                {k: v.detach().cpu().double().numpy() for k, v in policy.state_dict().items()
+                 if v.is_floating_point()}, sides)
+
+    runs = {"A": run(devices[0]), "B": run(devices[1]), "D": run(devices[1], torch.float64)}
+    runs["D|A"] = run(devices[1], torch.float64, follow=runs["A"][3])
+    # a float64 Adam step from A's own (clipped) gradients
+    ref = trainer_on(devices[1])
+    policy = ref.new_policy().double()
+    opt = ref.new_optimizer(policy)
+    for n, p in policy.named_parameters():
+        p.grad = torch.from_numpy(runs["A"][1][n].copy())
+    opt.step(ref._lr)
+    adam = {k: v.numpy() for k, v in policy.state_dict().items() if v.is_floating_point()}
+
+    def rel(x, y, base):
+        return float(np.linalg.norm(x - y) / max(np.linalg.norm(base), 1e-30))
+
+    lr = cfg.Pretrain.Passive.lr
+
+    def state(y):
+        return adam if y == "Adam(A)" else runs[y][2]
+
+    def dp(x, y, keys):
+        """Per tensor, the change from the start against y's, in norm."""
+        px, py = state(x), state(y)
+        return {k: rel(px[k], py[k], py[k] - start[k]) for k in keys}
+
+    def elem(x, y, keys):
+        """Per tensor, max |p_x - p_y| / (|p_y| + lr)."""
+        px, py = state(x), state(y)
+        return {k: float(np.max(np.abs(px[k] - py[k]) / (np.abs(py[k]) + lr))) for k in keys}
+
+    def top(errs, n=3):
+        return ", ".join(f"{v:.3e} ({k})" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])[:n])
+
+    params = [n for n in runs["A"][1]]
+    stats = [k for k in start if "running_" in k]
+    for x, y in (("A", "D"), ("A", "D|A"), ("B", "D"), ("A", "B")):
+        loss = float(np.max(np.abs(runs[x][0] - runs[y][0]) / np.abs(runs[y][0])))
+        grad = {n: rel(runs[x][1][n], runs[y][1][n], runs[y][1][n]) for n in params}
+        print(f"pretrain-parity {x} vs {y}: losses (train bin, mono, eval bin, mono) max rel err "
+              f"{loss:.3e}; gradient max rel err in norm {top(grad, 2)}; parameters (of |p| + lr) "
+              f"{top(elem(x, y, params), 2)}; BatchNorm statistics change {top(dp(x, y, stats), 2)}",
+              flush=True)
+    flips = {site: sum(int((a != d).sum()) for a, d in zip(runs["A"][3][site], calls))
+             for site, calls in runs["D"][3].items()}
+    print(f"pretrain-parity A vs D: kink sides that differ (site: count): "
+          f"{({k: v for k, v in flips.items() if v} or 'none')}", flush=True)
+
+    gates = {
+        "losses A vs D": float(np.max(np.abs(runs["A"][0] - runs["D"][0]) / np.abs(runs["D"][0]))),
+        "gradient A vs D|A": max(rel(runs["A"][1][n], runs["D|A"][1][n], runs["D|A"][1][n])
+                                 for n in params),
+        "BatchNorm statistics change A vs D|A": max(dp("A", "D|A", stats).values()),
+        "parameters A vs Adam(A), of |p| + lr": max(elem("A", "Adam(A)", params).values()),
+    }
+    for name, err in gates.items():
+        if not err <= TRAIN_TOL:
+            fail(f"pretrain-parity {name}: {err} (tol {TRAIN_TOL})")
+    phase("pretrain-parity", t0, (
+        f"A {devices[0]} vs float64 on {devices[1]}, one train step and one eval step at batch "
+        f"{b}, {len(params)} parameter and {len(stats)} statistic tensors: within {TRAIN_TOL}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gates.items())
     ))
 
 
@@ -800,15 +1118,23 @@ def main():
     parity_phase(torch)
     os.makedirs(run_dir)
     try:
-        train_launches = train_phase(torch, kernels, card, run_dir)
+        pre_launches, pre_ckpts = pretrain_phase(torch, kernels, card,
+                                                 os.path.join(run_dir, "pretrain"))
+        pre_eval_launches = pretrain_eval_phase(torch, kernels, pre_ckpts, run_dir)
+        train_launches = train_phase(
+            torch, kernels, card, run_dir,
+            pretrained=os.path.join(pre_ckpts, "best_ckpt_nonoverlapping_val.pth"))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)
+    pretrain_parity_phase(torch)
 
+    by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
+               "pretrain_eval": pre_eval_launches}
     for name, row in rows.items():
-        # the launches of both paths' runs
-        row["launches"] = launches[name] + train_launches[name]
-        row["launches_by_path"] = {"eval": launches[name], "train": train_launches[name]}
+        # the launches of every path's runs
+        row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,13 @@
 config, resolve the trainer from the registry, dispatch train/eval.
 
     python -m move2hear_tpu_torch.main --run-type train \\
-        --exp-config configs/train/nearTarget.yaml --model-dir DIR \\
-        [--device cpu] RL.PPO.pretrained_passive_separators_ckpt ""
+        --exp-config configs/pretrain_passive.yaml --model-dir PRE [--device cpu]
+    python -m move2hear_tpu_torch.main --run-type eval \\
+        --exp-config configs/pretrain_passive.yaml --model-dir PRE \\
+        [--device cpu] EVAL_CKPT_PATH_DIR PRE/data
+    python -m move2hear_tpu_torch.main --run-type train \\
+        --exp-config configs/train/nearTarget.yaml --model-dir DIR [--device cpu] \\
+        RL.PPO.pretrained_passive_separators_ckpt PRE/data/best_ckpt_nonoverlapping_val.pth
     python -m move2hear_tpu_torch.main --run-type eval \\
         --exp-config configs/test/nearTarget.yaml --model-dir DIR \\
         [--device cpu] EVAL_CKPT_PATH_DIR DIR/data/ckpt.N.pth
@@ -16,6 +21,7 @@ import argparse
 import logging
 
 from move2hear_tpu_torch.config import get_config
+from move2hear_tpu_torch.pretrain import trainer as _pretrain  # noqa: F401  registers "passive"
 from move2hear_tpu_torch.rl import trainer as _trainers  # noqa: F401  registers "ppo"
 from move2hear_tpu_torch.utils.registry import registry
 

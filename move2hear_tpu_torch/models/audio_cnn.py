@@ -11,12 +11,14 @@ Input modes: bin mode ``log1p(clamp(mask * expm1(mix), 0))`` through the
 import torch
 from torch import nn
 
+from move2hear_tpu_torch.models.unet import init_dense_
 from move2hear_tpu_torch.ops.kernels import masked_mix_slice16
 from move2hear_tpu_torch.ops.spec import slice16_nchw
 
 
 class AudioCNN(nn.Module):
-    def __init__(self, output_size: int = 512, encode_mono_n_mono_from_mem: bool = False):
+    def __init__(self, output_size: int = 512, encode_mono_n_mono_from_mem: bool = False,
+                 generator=None):
         super().__init__()
         self.encode_mono_n_mono_from_mem = encode_mono_n_mono_from_mem
         self.cnn = nn.Sequential(
@@ -26,6 +28,9 @@ class AudioCNN(nn.Module):
             nn.Flatten(),
             nn.Linear(32, output_size), nn.ReLU(),
         )
+        for layer in self.cnn:
+            if isinstance(layer, (nn.Conv2d, nn.Linear)):
+                init_dense_(layer, generator)
 
     def forward(
         self,

@@ -1,5 +1,8 @@
 """Categorical action head and critic head (the reference's
-``common/utils.py:16-50`` and ``rl/ppo/policy.py:15-23``)."""
+``common/utils.py:16-50`` and ``rl/ppo/policy.py:15-23``). Both heads are
+linear layers with orthogonal weights and zero bias: gain 0.01 for the
+action logits, so the initial policy is close to uniform, and 1 for the
+critic."""
 
 from typing import Optional
 
@@ -34,19 +37,26 @@ class Categorical:
         return -torch.sum(self.probs() * self.log_probs_all, dim=-1)
 
 
+def _orthogonal_linear(num_inputs: int, num_outputs: int, gain: float, generator=None):
+    layer = nn.Linear(num_inputs, num_outputs)
+    nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
 class CategoricalNet(nn.Module):
-    def __init__(self, num_inputs: int, num_actions: int):
+    def __init__(self, num_inputs: int, num_actions: int, generator=None):
         super().__init__()
-        self.linear = nn.Linear(num_inputs, num_actions)
+        self.linear = _orthogonal_linear(num_inputs, num_actions, 0.01, generator)
 
     def forward(self, x: torch.Tensor) -> Categorical:
         return Categorical(self.linear(x))
 
 
 class CriticHead(nn.Module):
-    def __init__(self, num_inputs: int):
+    def __init__(self, num_inputs: int, generator=None):
         super().__init__()
-        self.fc = nn.Linear(num_inputs, 1)
+        self.fc = _orthogonal_linear(num_inputs, 1, 1.0, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)

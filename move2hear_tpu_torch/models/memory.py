@@ -6,16 +6,21 @@ Conv3x3(32) -> [BatchNorm] -> ReLU -> Conv3x3(16), de-sliced back to
 import torch
 from torch import nn
 
+from move2hear_tpu_torch.models.unet import BatchNorm2d, kaiming_relu_
 from move2hear_tpu_torch.ops.spec import SLICE_FACTOR, deslice16_nchw, slice16_nchw
 
 
 class AcousticMem(nn.Module):
-    def __init__(self, use_ddppo: bool = False):
+    def __init__(self, use_ddppo: bool = False, generator=None):
         super().__init__()
-        layers = [nn.Conv2d(2 * SLICE_FACTOR, 32, 3, padding=1, bias=False)]
+        convs = (nn.Conv2d(2 * SLICE_FACTOR, 32, 3, padding=1, bias=False),
+                 nn.Conv2d(32, SLICE_FACTOR, 3, padding=1, bias=False))
+        for conv in convs:
+            kaiming_relu_(conv.weight, generator)
+        layers = [convs[0]]
         if not use_ddppo:
-            layers.append(nn.BatchNorm2d(32))
-        layers += [nn.ReLU(), nn.Conv2d(32, SLICE_FACTOR, 3, padding=1, bias=False)]
+            layers.append(BatchNorm2d(32))
+        layers += [nn.ReLU(), convs[1]]
         self.cnn = nn.Sequential(*layers)
 
     def forward(self, pred_mono: torch.Tensor,

@@ -41,18 +41,20 @@ class PolicyNet(nn.Module):
     2*hidden GRU input."""
 
     def __init__(self, hidden_size: int = 512, extra_rgb: bool = False,
-                 extra_depth: bool = False):
+                 extra_depth: bool = False, generator=None):
         super().__init__()
         blind = extra_rgb and extra_depth
         self.visual_encoder = (
-            None if blind else VisualCNN(hidden_size, extra_rgb, extra_depth)
+            None if blind else VisualCNN(hidden_size, extra_rgb, extra_depth,
+                                         generator=generator)
         )
-        self.bin_encoder = AudioCNN(hidden_size)
+        self.bin_encoder = AudioCNN(hidden_size, generator=generator)
         self.monoNmonoFromMem_encoder = AudioCNN(
-            hidden_size, encode_mono_n_mono_from_mem=True
+            hidden_size, encode_mono_n_mono_from_mem=True, generator=generator
         )
         n_feats = 2 if blind else 3
-        self.state_encoder = GRUStateEncoder(n_feats * hidden_size, hidden_size)
+        self.state_encoder = GRUStateEncoder(n_feats * hidden_size, hidden_size,
+                                             generator=generator)
 
     def features(self, observations, pred_binSepMasks, pred_mono, pred_monoFromMem):
         """A precomputed ``visual_feats`` entry (the evaluator's per-pose
@@ -104,21 +106,22 @@ class PolicyNet(nn.Module):
 
 class Move2HearPolicy(nn.Module):
     """Full agent: policy net + action/critic heads + the five separator
-    modules."""
+    modules. Weights are drawn as the JAX package draws them (see
+    ``models/unet.py``), from `generator` if one is given."""
 
     def __init__(self, num_actions: int = 4, hidden_size: int = 512,
                  extra_rgb: bool = False, extra_depth: bool = False,
-                 use_ddppo: bool = False):
+                 use_ddppo: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hidden_size = hidden_size
-        self.pol_net = PolicyNet(hidden_size, extra_rgb, extra_depth)
-        self.action_dist = CategoricalNet(hidden_size, num_actions)
-        self.critic = CriticHead(hidden_size)
-        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False)
-        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False)
-        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True)
-        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True)
-        self.acoustic_mem = AcousticMem(use_ddppo=use_ddppo)
+        self.pol_net = PolicyNet(hidden_size, extra_rgb, extra_depth, generator=generator)
+        self.action_dist = CategoricalNet(hidden_size, num_actions, generator=generator)
+        self.critic = CriticHead(hidden_size, generator=generator)
+        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=generator)
+        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=generator)
+        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=generator)
+        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=generator)
+        self.acoustic_mem = AcousticMem(use_ddppo=use_ddppo, generator=generator)
 
     def visual_features(self, rgb=None, depth=None) -> torch.Tensor:
         """Pol-net visual encodings for a batch of poses."""
@@ -202,3 +205,39 @@ class Move2HearPolicy(nn.Module):
         values = self.critic(feats_flat).reshape(t, n, 1)
         log_probs = dist.log_probs(action.reshape(t * n, 1)).reshape(t, n, 1)
         return values, log_probs, dist.entropy().mean(), new_hidden
+
+
+class Move2HearPassiveWoMemoryPolicy(nn.Module):
+    """The passive pretrain's policy (the reference's
+    ``pretrain/passive/policy.py:47-97``): the two passive separator pairs
+    under ``Move2HearPolicy``'s names, so the RL trainer copies their
+    weights by name. BatchNorm follows the module's mode (``train()`` for
+    the pretrain step, ``eval()`` for its validation)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=generator)
+        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=generator)
+        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=generator)
+        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=generator)
+
+    def get_binSepMasks(self, observations: Observations) -> torch.Tensor:
+        bottleneck, skips = self.binSep_enc(
+            observations["mixed_bin_audio_mag"],
+            target_class=observations["target_class"],
+        )
+        return self.binSep_dec(bottleneck, skips)
+
+    def convert_bin2mono(self, pred_binSepMasks, mixed_audio) -> torch.Tensor:
+        """The masks enter detached, as the JAX package's ``stop_gradient``:
+        the mono loss trains the bin2mono pair only, and no gradient reaches
+        masked_mix_slice16's inputs."""
+        bottleneck, skips = self.bin2mono_enc(
+            mixed_audio, pred_bin_sep_masks=pred_binSepMasks.detach()
+        )
+        return self.bin2mono_dec(bottleneck, skips)
+
+    def forward(self, observations: Observations):
+        """(pred_binSepMasks (B, F, T, 2), pred_mono (B, F, T, 1))."""
+        masks = self.get_binSepMasks(observations)
+        return masks, self.convert_bin2mono(masks, observations["mixed_bin_audio_mag"])

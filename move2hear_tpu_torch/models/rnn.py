@@ -5,16 +5,25 @@ from zeros. Cell math is torch.nn.GRU's (gate order r, z, n).
 
 The sequence form (the PPO update's) steps the same ``nn.GRU`` over the
 time axis, re-masking the hidden state before each step, as the JAX
-package's ``lax.scan`` does."""
+package's ``lax.scan`` does.
+
+Weights are orthogonal and biases zero, as the reference's
+(rnn_state_encoder.py:36-41). flax's ``(in, 3H)`` kernels are the transpose
+of torch's ``(3H, in)``; the transpose of an orthogonal matrix is one too."""
 
 import torch
 from torch import nn
 
 
 class GRUStateEncoder(nn.Module):
-    def __init__(self, input_size: int, hidden_size: int = 512):
+    def __init__(self, input_size: int, hidden_size: int = 512, generator=None):
         super().__init__()
         self.rnn = nn.GRU(input_size, hidden_size)
+        for name, p in self.rnn.named_parameters():
+            if name.startswith("weight"):
+                nn.init.orthogonal_(p, generator=generator)
+            else:
+                nn.init.zeros_(p)
 
     def forward(self, x: torch.Tensor, hidden: torch.Tensor, masks: torch.Tensor):
         """Single step: x (B, D), hidden (B, H), masks (B, 1) -> (output, new

@@ -11,18 +11,89 @@
 
 Module and parameter names follow the reference (``cnn.{i}.{0,1}``), so its
 state dicts load with ``load_state_dict``. Layers run NCHW; inputs and
-outputs keep the sensor layout (B, F, T, C). BatchNorm runs in eval mode.
+outputs keep the sensor layout (B, F, T, C). BatchNorm follows the module's
+mode: batch statistics in training mode (the passive pretrain), running
+statistics in eval mode (evaluation and the RL path).
+
+The weight initialisers of every port module live here, as the JAX
+package's do (``move2hear_tpu/models/unet.py``); the other modules import
+them. Each takes an optional ``torch.Generator``.
 """
 
-from typing import List, Sequence
+import math
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from move2hear_tpu_torch.ops.kernels import masked_mix_slice16
 from move2hear_tpu_torch.ops.spec import SLICE_FACTOR, deslice16_nchw, slice16_nchw
 
 ENC_CHANNELS = (64, 128, 256, 512, 512)
+
+# The reference's layer_init (separator_cnn.py:56-68, 139-151) passes
+# calculate_gain(...) as the *negative-slope* argument `a` of
+# kaiming_normal_, so the effective init std is gain(a)/sqrt(fan) with
+# gain(a) = sqrt(2 / (1 + a^2)), NOT the textbook kaiming std. Reproduced
+# exactly:
+#   encoder convs:  a = calculate_gain("leaky_relu", 0.2) = sqrt(2/1.04)
+#                   -> scale = 2 / (1 + 2/1.04)
+#   decoder convs:  a = calculate_gain("relu") = sqrt(2) -> scale = 2/3
+_ENC_SCALE = 2.0 / (1.0 + 2.0 / 1.04)
+_DEC_SCALE = 2.0 / 3.0
+
+
+def variance_scaling_(weight: torch.Tensor, scale: float,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``variance_scaling(scale, "fan_in", "normal")`` with torch's
+    fan-in, ``weight[0].numel()``: in * kh * kw for a Conv2d, in for a
+    Linear, and out * kh * kw for a ConvTranspose2d, whose weight is
+    (in, out, kh, kw); the last is flax's "fan_out" of its (kh, kw, in, out)
+    kernel, which is what the JAX package uses there."""
+    std = math.sqrt(scale / weight[0].numel())
+    with torch.no_grad():
+        return weight.normal_(0.0, std, generator=generator)
+
+
+def kaiming_leaky_(weight, generator=None):
+    return variance_scaling_(weight, _ENC_SCALE, generator)
+
+
+def kaiming_relu_(weight, generator=None):
+    return variance_scaling_(weight, _DEC_SCALE, generator)
+
+
+def init_dense_(layer: nn.Module, generator=None) -> None:
+    """A Conv2d or Linear of the policy's CNNs: ``kaiming_relu`` weight,
+    zero bias (flax's default)."""
+    kaiming_relu_(layer.weight, generator)
+    if layer.bias is not None:
+        nn.init.zeros_(layer.bias)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` under torch's
+    names (weight, bias, running_mean, running_var, num_batches_tracked).
+    flax's momentum 0.9 is torch's 0.1. In training mode both normalize by
+    the biased batch variance, but ``nn.BatchNorm2d`` moves ``running_var``
+    towards the unbiased one (n / (n - 1) times larger, 64/63 at the
+    bottleneck of a 64-sample batch); flax, and this module, towards the
+    biased one. Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class PassiveSepEncoder(nn.Module):
@@ -33,17 +104,15 @@ class PassiveSepEncoder(nn.Module):
 
     Returns (bottleneck (B, 512), skip features deepest-first, NCHW)."""
 
-    def __init__(self, convert_bin2mono: bool = False):
+    def __init__(self, convert_bin2mono: bool = False, generator=None):
         super().__init__()
         self.convert_bin2mono = convert_bin2mono
         in_ch = 2 * SLICE_FACTOR + (0 if convert_bin2mono else 1)
         blocks = []
         for out_ch in ENC_CHANNELS:
-            blocks.append(nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False),
-                nn.BatchNorm2d(out_ch),
-                nn.LeakyReLU(0.2),
-            ))
+            conv = nn.Conv2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False)
+            kaiming_leaky_(conv.weight, generator)
+            blocks.append(nn.Sequential(conv, BatchNorm2d(out_ch), nn.LeakyReLU(0.2)))
             in_ch = out_ch
         self.cnn = nn.ModuleList(blocks)
 
@@ -74,20 +143,19 @@ class PassiveSepDecoder(nn.Module):
     a 1x1 conv with bias and no activation. Output (B, 512, 32, C) with
     C = 1 (bin2mono) or 2 (binaural masks)."""
 
-    def __init__(self, convert_bin2mono: bool = False):
+    def __init__(self, convert_bin2mono: bool = False, generator=None):
         super().__init__()
         n_out = SLICE_FACTOR if convert_bin2mono else 2 * SLICE_FACTOR
         ins = (512, 1024, 512, 256, 128)
         outs = (512, 256, 128, 64, n_out)
-        blocks = [
-            nn.Sequential(
-                nn.ConvTranspose2d(i, o, 4, stride=2, padding=1, bias=False),
-                nn.BatchNorm2d(o),
-                nn.ReLU(),
-            )
-            for i, o in zip(ins, outs)
-        ]
-        blocks.append(nn.Sequential(nn.Conv2d(n_out, n_out, 1)))
+        blocks = []
+        for i, o in zip(ins, outs):
+            conv = nn.ConvTranspose2d(i, o, 4, stride=2, padding=1, bias=False)
+            kaiming_relu_(conv.weight, generator)
+            blocks.append(nn.Sequential(conv, BatchNorm2d(o), nn.ReLU()))
+        out_conv = nn.Conv2d(n_out, n_out, 1)
+        init_dense_(out_conv, generator)
+        blocks.append(nn.Sequential(out_conv))
         self.cnn = nn.ModuleList(blocks)
 
     def forward(self, bottleneck: torch.Tensor, skips: Sequence[torch.Tensor]):

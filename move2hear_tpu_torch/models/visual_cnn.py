@@ -8,11 +8,13 @@ Frames arrive NHWC (B, H, W, C), as the frame banks store them."""
 import torch
 from torch import nn
 
+from move2hear_tpu_torch.models.unet import init_dense_
+
 
 class VisualCNN(nn.Module):
     def __init__(
         self, output_size: int = 512, extra_rgb: bool = False,
-        extra_depth: bool = False, image_size: int = 128,
+        extra_depth: bool = False, image_size: int = 128, generator=None,
     ):
         super().__init__()
         self.extra_rgb = extra_rgb
@@ -26,6 +28,9 @@ class VisualCNN(nn.Module):
             nn.Flatten(),
             nn.Linear(32 * side * side, output_size), nn.ReLU(),
         )
+        for layer in self.cnn:
+            if isinstance(layer, (nn.Conv2d, nn.Linear)):
+                init_dense_(layer, generator)
 
     def forward(self, rgb: torch.Tensor = None, depth: torch.Tensor = None):
         inputs = []

@@ -132,24 +132,29 @@ def _prefixed(prefix: str, sd: StateDict) -> StateDict:
 
 def from_jax(params, batch_stats=None) -> StateDict:
     """The flax tree of ``move2hear_tpu.models.Move2HearPolicy`` -> the
-    state dict of ``move2hear_tpu_torch.models.Move2HearPolicy``."""
+    state dict of ``move2hear_tpu_torch.models.Move2HearPolicy``; a tree of
+    the passive pretrain's policy (the four separator subtrees only) -> that
+    of ``Move2HearPassiveWoMemoryPolicy``. The flax tree has no
+    ``num_batches_tracked``; it maps to 0."""
     stats = batch_stats or {}
-    pol = params["pol_net"]
     sd: StateDict = {}
-    if "visual_encoder" in pol:
-        sd.update(_prefixed("pol_net.visual_encoder.", visual_cnn(pol["visual_encoder"])))
-    sd.update(_prefixed("pol_net.bin_encoder.", audio_cnn(pol["bin_encoder"])))
-    sd.update(_prefixed(
-        "pol_net.monoNmonoFromMem_encoder.", audio_cnn(pol["monoNmonoFromMem_encoder"])
-    ))
-    sd.update(_prefixed("pol_net.state_encoder.", gru(pol["state_encoder"])))
-    sd.update(_dense(params["action_dist"], "action_dist.linear."))
-    sd.update(_dense(params["critic"], "critic.fc."))
+    if "pol_net" in params:
+        pol = params["pol_net"]
+        if "visual_encoder" in pol:
+            sd.update(_prefixed("pol_net.visual_encoder.", visual_cnn(pol["visual_encoder"])))
+        sd.update(_prefixed("pol_net.bin_encoder.", audio_cnn(pol["bin_encoder"])))
+        sd.update(_prefixed(
+            "pol_net.monoNmonoFromMem_encoder.", audio_cnn(pol["monoNmonoFromMem_encoder"])
+        ))
+        sd.update(_prefixed("pol_net.state_encoder.", gru(pol["state_encoder"])))
+        sd.update(_dense(params["action_dist"], "action_dist.linear."))
+        sd.update(_dense(params["critic"], "critic.fc."))
     for name in ("binSep_enc", "bin2mono_enc"):
         sd.update(_prefixed(f"{name}.", unet_encoder(params[name], stats[name])))
     for name in ("binSep_dec", "bin2mono_dec"):
         sd.update(_prefixed(f"{name}.", unet_decoder(params[name], stats[name])))
-    sd.update(_prefixed(
-        "acoustic_mem.", acoustic_mem(params["acoustic_mem"], stats.get("acoustic_mem", {}))
-    ))
+    if "acoustic_mem" in params:
+        sd.update(_prefixed(
+            "acoustic_mem.", acoustic_mem(params["acoustic_mem"], stats.get("acoustic_mem", {}))
+        ))
     return sd

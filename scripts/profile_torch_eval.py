@@ -26,6 +26,8 @@ BUCKETS = (  # first match wins; names are CUDA kernel names
     ("masked_mix_slice16_bwd", ("masked_mix_slice16_bwd",)),
     ("masked_mix_slice16", ("masked_mix_slice16",)),
     ("overlap_add", ("overlap_add",)),
+    ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("optimizer", ("multi_tensor", "adam")),
     ("conv/gemm", ("conv", "gemm", "sm90", "cudnn", "cutlass", "xmma", "implicit", "winograd")),
     ("fft", ("fft", "radix", "regular_fft", "vector_fft")),
     ("reduce", ("reduce",)),
