@@ -41,6 +41,19 @@ Phases, each printing its own line(s) with its seconds:
      collect, policy update and refit, warm (second-cycle) env-steps/s,
      finite losses, launch counters equal to TRAIN_LAUNCHES; then the eval
      CLI on the checkpoint it wrote;
+ 8a. far-train: ``--run-type train`` with configs/train/farTarget.yaml at
+     full width (the same cycle as phase 8, navigation rewards, 80-step
+     episodes) for 2 cycles from phase 6's separators: set-up, per-cycle
+     seconds, warm far-target env-steps/s, finite losses, non-zero
+     navigation rewards, launch counters equal to FAR_TRAIN_LAUNCHES;
+ 8b. far-eval: scripts/torch_merge_switch_ckpt.py merges 8a's checkpoint
+     (navigation) with phase 8's (quality improvement), then ``--run-type
+     eval`` with configs/test/farTarget.yaml (64 micro-scene episodes, 16
+     envs, 100 steps, policy switch at step 80), cold then warm: set-up,
+     env-steps/s, the per-episode distance fields, launch counters equal to
+     FAR_EVAL_LAUNCHES;
+ 8c. switch-parity: a short switch-policy eval on the card (TF32 off)
+     against the same eval on the CPU's plain path, as phase 5;
   9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -100,6 +113,12 @@ EVAL_LAUNCHES = {"masked_mix_slice16": 160, "overlap_add": 80, "masked_mix_slice
 # the stored inputs need no gradient, so the backward never runs, and
 # training computes no ISTFT.
 TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# far-train: the train cycle's shape (14 envs x 20 steps, 6 updates, 4
+# PPO epochs): the navigation reward adds no separator call, so 552 as train.
+FAR_TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# far-eval: 16 envs x 100 steps x 4 batches (64 episodes); either policy of
+# the switch makes the eval's 2 masked_mix_slice16 and 1 overlap_add a step.
+FAR_EVAL_LAUNCHES = {"masked_mix_slice16": 800, "overlap_add": 400, "masked_mix_slice16_bwd": 0}
 # pretrain: 3 epochs x (256 // 64 = 4 train steps + 1 val and 1
 # nonoverlapping-val batch of 64) = 18, one in the bin2mono encoder each;
 # its masks enter detached (the JAX package's stop_gradient), and the
@@ -557,82 +576,157 @@ def pretrain_eval_phase(torch, kernels, ckpt_dir, run_dir, device="cuda", opts=(
 
 
 TRAIN_EXP = os.path.join(REPO, "configs", "train", "nearTarget.yaml")
+FAR_TRAIN_EXP = os.path.join(REPO, "configs", "train", "farTarget.yaml")
+FAR_EVAL_EXP = os.path.join(REPO, "configs", "test", "farTarget.yaml")
 TRAIN_OPTS = ["NUM_UPDATES", "12"]
 
 
-def train_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=TRAIN_LAUNCHES,
-                pretrained=""):
-    """Phase 8: the train CLI at full width for 2 cycles, its passive
-    separators loaded from the `pretrained` checkpoint (seeded random ones
-    when it is ""), with the launch counters set to 0 just before it and
-    read just after; then the eval CLI on the checkpoint it wrote. Returns
-    the train path's launch counts. (`device`, `opts` and `launches` let a
-    rehearsal run it small on the CPU.)"""
+def train_phase(torch, kernels, card, run_dir, label="train", exp=TRAIN_EXP, device="cuda",
+                opts=(), launches=TRAIN_LAUNCHES, pretrained=""):
+    """Phases 8 and 8a: the train CLI with config `exp` at full width for 2
+    cycles, its passive separators loaded from the `pretrained` checkpoint
+    (seeded random ones when it is ""), with the launch counters set to 0
+    just before it and read just after. Returns the path's launch counts,
+    its last checkpoint and the trainer. (`device`, `opts` and `launches`
+    let a rehearsal run it small on the CPU.)"""
     import numpy as np
 
     from move2hear_tpu_torch.main import main as port_main
     from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 
-    dev_args = ["--device", device]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = port_main(["--run-type", "train", "--exp-config", TRAIN_EXP, "--model-dir", run_dir,
-                         *dev_args, *TRAIN_OPTS, "RL.PPO.pretrained_passive_separators_ckpt",
-                         pretrained, *opts])
+    trainer = port_main(["--run-type", "train", "--exp-config", exp, "--model-dir", run_dir,
+                         "--device", device, *TRAIN_OPTS,
+                         "RL.PPO.pretrained_passive_separators_ckpt", pretrained, *opts])
     if device == "cuda":
         torch.cuda.synchronize()
     counts = kernels.launch_counts()
     wall = time.perf_counter() - t0
     if counts != launches:
-        fail(f"train-path kernel launches {counts}, expected {launches}")
+        fail(f"{label}-path kernel launches {counts}, expected {launches}")
     cycles = trainer.cycle_log
     if len(cycles) != 2:
-        fail(f"train ran {len(cycles)} cycles, expected 2")
+        fail(f"{label} ran {len(cycles)} cycles, expected 2")
     for i, c in enumerate(cycles):
-        phase("train", t0, (
+        phase(label, t0, (
             f"cycle {i} ({'cold' if i == 0 else 'warm'}): {c['env_steps']} env-steps in "
             f"{c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; collect "
-            f"{c['collect']:.3f} s, policy update {c['update']:.3f} s, refit {c['refit']:.3f} s "
-            f"({card})"
+            f"{c['collect']:.3f} s, policy update {c['update']:.3f} s, refit {c['refit']:.3f} s; "
+            f"mean |reward| {c['reward_abs_mean']:.6f} ({card})"
         ))
     for i, (pol, sep) in enumerate(trainer.loss_log):
         if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
-            fail(f"train cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
-        print(f"train cycle {i} losses, last update: value {pol[-1][0]:.6f} action "
+            fail(f"{label} cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
+        print(f"{label} cycle {i} losses, last update: value {pol[-1][0]:.6f} action "
               f"{pol[-1][1]:.6f} entropy {pol[-1][2]:.6f}; refit bin {sep[-1][0]:.6f} "
               f"mono {sep[-1][1]:.6f} mem {sep[-1][2]:.6f}", flush=True)
     warm = cycles[1]
-    print(f"train: set-up {trainer.setup_s:.3f} s, warm {warm['env_steps'] / warm['total']:.1f} "
+    print(f"{label}: set-up {trainer.setup_s:.3f} s, warm {warm['env_steps'] / warm['total']:.1f} "
           f"env-steps/s, end to end {sum(c['env_steps'] for c in cycles) / wall:.1f} env-steps/s "
-          f"over {wall:.3f} s; train-path launches: {counts}", flush=True)
+          f"over {wall:.3f} s; {label}-path launches: {counts}", flush=True)
 
     ckpts = sorted(f for f in os.listdir(trainer.config.CHECKPOINT_FOLDER) if f.startswith("ckpt."))
     ckpt = os.path.join(trainer.config.CHECKPOINT_FOLDER, f"ckpt.{len(cycles)}.pth")
     if not os.path.exists(ckpt):
-        fail(f"train wrote {ckpts}, not ckpt.{len(cycles)}.pth")
+        fail(f"{label} wrote {ckpts}, not ckpt.{len(cycles)}.pth")
     if pretrained:
         pre = load_checkpoint(pretrained)["state_dict"]
         got = load_checkpoint(ckpt)["state_dict"]
         bad = [k for k, v in pre.items() if not torch.equal(got[k], v)]
         if bad:
-            fail(f"train: {len(bad)} passive-separator tensors differ from {pretrained}: {bad[:3]}")
-        print(f"train started from {os.path.basename(pretrained)}: its {len(pre)} passive-separator "
+            fail(f"{label}: {len(bad)} passive-separator tensors differ from {pretrained}: {bad[:3]}")
+        print(f"{label} started from {os.path.basename(pretrained)}: its {len(pre)} passive-separator "
               f"tensors (BatchNorm statistics included) are unchanged in {os.path.basename(ckpt)}",
               flush=True)
-    t1 = time.perf_counter()
+    return counts, ckpt, trainer
+
+
+def train_eval_phase(run_dir, ckpt, device="cuda", opts=()):
+    """The end of phase 8: the eval CLI with configs/test/nearTarget.yaml on
+    the checkpoint the near-target training wrote."""
+    from move2hear_tpu_torch.main import main as port_main
+
+    t0 = time.perf_counter()
     ev = port_main(["--run-type", "eval", "--exp-config",
                     os.path.join(REPO, "configs", "test", "nearTarget.yaml"),
-                    "--model-dir", os.path.join(run_dir, "eval"), *dev_args,
+                    "--model-dir", os.path.join(run_dir, "eval"), "--device", device,
                     "EVAL_CKPT_PATH_DIR", ckpt, *opts])
     agg, tm = ev.last_eval
     for k in ("mono_l2_last", "mem_l2_last", "bin_l2_all"):
         if not all(math.isfinite(v) for v in agg[k].values()):
             fail(f"eval of the trained checkpoint: {k} not finite: {agg[k]}")
-    phase("train", t1, (
-        f"eval of {os.path.basename(ckpt)} (of {ckpts}): {tm['episodes']} episodes, "
+    phase("train", t0, (
+        f"eval of {os.path.basename(ckpt)}: {tm['episodes']} episodes, "
         f"mono_l2_last {agg['mono_l2_last']['mean']:.6f}, mem_l2_last "
         f"{agg['mem_l2_last']['mean']:.6f}, bin_l2_all {agg['bin_l2_all']['mean']:.6f}"
     ))
+
+
+def require_nav_rewards(trainer, label="far-train"):
+    """The end of phase 8a: every cycle of the far-target training saw a
+    non-zero navigation reward."""
+    for i, c in enumerate(trainer.cycle_log):
+        if not c["reward_abs_mean"] > 0.0:
+            fail(f"{label} cycle {i}: every navigation reward is 0")
+
+
+FAR_EVAL_FIELDS = ("geo_distance_to_target_audio_source",
+                   "normalized_geo_distance_to_target_audio_source", "geodesic_distance_0",
+                   "euclidean_distance_0", "mono_l2_last", "mem_l2_last", "mono_si_sdr_last",
+                   "monoFromMem_si_sdr_last")
+
+
+def far_eval_phase(torch, kernels, card, run_dir, nav_ckpt, qi_ckpt, device="cuda", opts=(),
+                   launches=FAR_EVAL_LAUNCHES, episodes=64):
+    """Phase 8b: merge the far-target checkpoint (navigation) and the
+    near-target one (quality improvement) with the merge CLI, then run the
+    eval CLI with configs/test/farTarget.yaml on the switch checkpoint, cold
+    then warm, each with the launch counters set to 0 just before it and
+    read just after. Returns the far-eval path's launch counts."""
+    from move2hear_tpu_torch.main import main as port_main
+
+    t0 = time.perf_counter()
+    switch = os.path.join(run_dir, "switch.pth")
+    merge = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "torch_merge_switch_ckpt.py"),
+         nav_ckpt, qi_ckpt, switch], capture_output=True, text=True,
+    )
+    if merge.returncode != 0 or not os.path.exists(switch):
+        fail(f"switch merge failed: rc {merge.returncode}: {merge.stderr[-2000:]}")
+    phase("far-eval", t0, f"merged {os.path.basename(nav_ckpt)} (navigation) and "
+                          f"{os.path.basename(qi_ckpt)} (quality improvement) into "
+                          f"{os.path.basename(switch)}")
+    for run in ("cold", "warm"):
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        ev = port_main(["--run-type", "eval", "--exp-config", FAR_EVAL_EXP, "--model-dir",
+                        os.path.join(run_dir, "far_eval"), "--device", device,
+                        "EVAL_CKPT_PATH_DIR", switch, *opts])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        if counts != launches:
+            fail(f"far-eval kernel launches {counts}, expected {launches}")
+        agg, tm = ev.last_eval
+        cfg = ev.config
+        if not (cfg.RL.PPO.switch_policy and tm["episodes"] == episodes):
+            fail(f"far-eval: switch_policy {cfg.RL.PPO.switch_policy}, {tm['episodes']} "
+                 f"episodes, expected the switch policy over {episodes}")
+        for k in FAR_EVAL_FIELDS:
+            if k not in agg or not all(math.isfinite(v) for v in agg[k].values()):
+                fail(f"far-eval aggregate {k} missing or not finite: {agg.get(k)}")
+        phase("far-eval", t0, (
+            f"run {run}: {tm['env_steps'] / tm['loop_s']:.1f} env-steps/s over the episode loop "
+            f"({tm['episodes']} episodes x {cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS} steps, "
+            f"switch at step {cfg.RL.PPO.time_thres_for_pol_switch}, {tm['loop_s']:.3f} s), "
+            f"set-up {tm['setup_s']:.3f} s, end to end {tm['env_steps'] / wall:.1f} env-steps/s "
+            f"({card})"
+        ))
+    print("far-eval aggregates: " + ", ".join(
+        f"{k} {agg[k]['mean']:.6f}" for k in FAR_EVAL_FIELDS) + f"; far-eval-path launches: "
+        f"{counts}", flush=True)
     return counts
 
 
@@ -1024,8 +1118,12 @@ def pretrain_parity_phase(torch, devices=("cuda", "cpu"), b=16):
     ))
 
 
-def parity_phase(torch):
-    """Phase 5: the same short deterministic eval on the card and on the CPU."""
+def parity_phase(torch, switch=False, devices=("cuda", "cpu"), n_envs=8, hid=512):
+    """Phase 5 (and 8c with `switch`): the same short deterministic eval on
+    the card and on the CPU. The switch-policy eval runs a navigation and a
+    quality-improvement policy (different seeds) on the far-target
+    micro-scene, switching at step 3 of 5. (`devices`, `n_envs` and `hid`
+    let a rehearsal run it small on the CPU alone.)"""
     import numpy as np
 
     import move2hear_tpu_torch.env.device_env as de
@@ -1033,41 +1131,53 @@ def parity_phase(torch):
     from move2hear_tpu_torch.eval.device_evaluator import make_device_eval
     from move2hear_tpu_torch.models import Move2HearPolicy
 
+    name = "switch-parity" if switch else "parity"
     t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    n_envs, steps = 8, 5
-    bundle = build_micro_scene(rows=3, cols=3, num_episodes=n_envs, rir_length=4000)
-    torch.manual_seed(SEED + 1)
-    weights = Move2HearPolicy(3, 512, extra_depth=True, use_ddppo=True).state_dict()
+    if "cuda" in devices:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    steps, switch_at = 5, 3
+    bundle = build_micro_scene(rows=3, cols=3, num_episodes=n_envs, rir_length=4000,
+                               near_target=not switch)
+    weights = []
+    for seed in ((SEED + 1, SEED + 2) if switch else (SEED + 1,)):
+        torch.manual_seed(seed)
+        weights.append(Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True).state_dict())
     outs = {}
-    for name in ("cuda", "cpu"):
-        dev = torch.device(name)
-        policy = Move2HearPolicy(3, 512, extra_depth=True, use_ddppo=True)
-        policy.load_state_dict(weights)
-        policy = policy.to(dev).eval()
+    for i, name_dev in enumerate(devices):
+        dev = torch.device(name_dev)
+        policies = []
+        for w in weights:
+            policy = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True)
+            policy.load_state_dict(w)
+            policies.append(policy.to(dev).eval())
         bank = de.build_device_bundle(bundle, dev, precompute_rir_rfft=True)
-        fn = make_device_eval(policy, policy, steps, 1.2, (1, 2, 3), True,
+        fn = make_device_eval(policies[0], policies[-1], steps, 1.2, (1, 2, 3), True,
+                              switch_policy=switch, time_thres=switch_at,
                               compute_waveform_metrics=True)
         order = torch.arange(n_envs, device=dev)[:, None]
         with torch.inference_mode():
             _, _, o = fn(bank, de.env_reset_all(bank.scene, bank.episodes, order), None)
-        outs[name] = {k: v.cpu().numpy() for k, v in o.items()}
-    g, c = outs["cuda"], outs["cpu"]
+        outs[i] = {k: v.cpu().numpy() for k, v in o.items()}
+    g, c = outs[0], outs[1]
     if not np.array_equal(g["action"], c["action"]):
-        fail(f"parity: actions differ: cuda {g['action'].tolist()} cpu {c['action'].tolist()}")
+        fail(f"{name}: actions differ: {devices[0]} {g['action'].tolist()} "
+             f"{devices[1]} {c['action'].tolist()}")
+    if not np.array_equal(g["geo"], c["geo"]):
+        fail(f"{name}: distances differ: {g['geo'].tolist()} vs {c['geo'].tolist()}")
     rel = max(float(np.max(np.abs(g[k] - c[k]) / np.abs(c[k]))) for k in ("mono_l2", "mem_l2", "bin_l2"))
     if not rel <= 1e-4:
-        fail(f"parity: per-step STFT-L2 relative error {rel} > 1e-4")
+        fail(f"{name}: per-step STFT-L2 relative error {rel} > 1e-4")
     si_g, si_c = g["si_mono"][..., 0], c["si_mono"][..., 0]
     ok = si_c > -40.0  # below -40 dB the metric is ill-conditioned
     si_err = float(np.max(np.abs(si_g - si_c)[ok])) if ok.any() else 0.0
     if not si_err <= 0.05:
-        fail(f"parity: SI-SDR differs by {si_err} dB > 0.05 dB")
-    phase("parity", t0, (
-        f"cuda vs cpu over ({steps}, {n_envs}) (steps, envs): actions equal; per-step "
-        f"STFT-L2 max rel err {rel:.3e} (tol 1e-4); SI-SDR max abs diff {si_err:.4f} dB "
-        f"over {int(ok.sum())} entries above -40 dB (tol 0.05)"
+        fail(f"{name}: SI-SDR differs by {si_err} dB > 0.05 dB")
+    what = f"switch at step {switch_at}, " if switch else ""
+    phase(name, t0, (
+        f"{devices[0]} vs {devices[1]} over ({steps}, {n_envs}) (steps, envs), {what}actions "
+        f"equal; per-step STFT-L2 max rel err {rel:.3e} (tol 1e-4); SI-SDR max abs diff "
+        f"{si_err:.4f} dB over {int(ok.sum())} entries above -40 dB (tol 0.05)"
     ))
 
 
@@ -1121,16 +1231,24 @@ def main():
         pre_launches, pre_ckpts = pretrain_phase(torch, kernels, card,
                                                  os.path.join(run_dir, "pretrain"))
         pre_eval_launches = pretrain_eval_phase(torch, kernels, pre_ckpts, run_dir)
-        train_launches = train_phase(
-            torch, kernels, card, run_dir,
-            pretrained=os.path.join(pre_ckpts, "best_ckpt_nonoverlapping_val.pth"))
+        pretrained = os.path.join(pre_ckpts, "best_ckpt_nonoverlapping_val.pth")
+        train_launches, near_ckpt, _ = train_phase(torch, kernels, card, run_dir,
+                                                   pretrained=pretrained)
+        train_eval_phase(run_dir, near_ckpt)
+        far_train_launches, far_ckpt, far_trainer = train_phase(
+            torch, kernels, card, os.path.join(run_dir, "far"), label="far-train",
+            exp=FAR_TRAIN_EXP, launches=FAR_TRAIN_LAUNCHES, pretrained=pretrained)
+        require_nav_rewards(far_trainer)
+        far_eval_launches = far_eval_phase(torch, kernels, card, run_dir, far_ckpt, near_ckpt)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
+    parity_phase(torch, switch=True)
     train_parity_phase(torch)
     pretrain_parity_phase(torch)
 
     by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
-               "pretrain_eval": pre_eval_launches}
+               "pretrain_eval": pre_eval_launches, "far_train": far_train_launches,
+               "far_eval": far_eval_launches}
     for name, row in rows.items():
         # the launches of every path's runs
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}

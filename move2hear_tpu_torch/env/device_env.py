@@ -58,6 +58,7 @@ class DeviceEnvState:
     ep: torch.Tensor          # (N,) current episode index
     cursor: torch.Tensor      # (N,) position in the order table
     order: torch.Tensor       # (N, K) per-env episode order
+    prev_geo: torch.Tensor    # (N,) f32 geodesic distance before the step (nav reward)
 
 
 class DeviceObs(NamedTuple):
@@ -285,6 +286,7 @@ def env_reset_all(
         ep=ep,
         cursor=zeros.clone(),
         order=order,
+        prev_geo=episodes.start_geo[ep],
     )
 
 
@@ -296,7 +298,8 @@ def env_step(
     max_episode_steps: int,
 ) -> Tuple[DeviceEnvState, dict]:
     """One step for all N envs, with auto-reset at the horizon (episode_over
-    = step budget exhausted, environments.py:94-98)."""
+    = step budget exhausted, environments.py:94-98). ``info["nav_reward"]``
+    is the decrease of the geodesic distance to the target over the step."""
     scene_i = episodes.scene_idx[state.ep]
     orientation = (270 - state.rot) % 360
     fwd = _forward_neighbor(scene, scene_i, state.node, orientation)
@@ -312,6 +315,7 @@ def env_step(
 
     target = episodes.sources[state.ep, 0]
     geo = scene.dist[scene_i, node, target].to(torch.float32) * scene.grid_size[scene_i]
+    nav_reward = state.prev_geo - geo
     start_geo = episodes.start_geo[state.ep]
     ndg = torch.where(start_geo > 0, geo / start_geo, torch.full_like(geo, -1.0))
 
@@ -326,8 +330,9 @@ def env_step(
         ep=ep_next,
         cursor=cursor_next,
         order=state.order,
+        prev_geo=torch.where(done, episodes.start_geo[ep_next], geo),
     )
-    return new_state, {"done": done, "geo": geo, "ndg": ndg}
+    return new_state, {"done": done, "nav_reward": nav_reward, "geo": geo, "ndg": ndg}
 
 
 def observe(episodes: DeviceEpisodes, state: DeviceEnvState) -> DeviceObs:

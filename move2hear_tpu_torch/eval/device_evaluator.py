@@ -33,6 +33,7 @@ from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture_pre
 from move2hear_tpu_torch.ops.stft import istft_mag_phase
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 SI_METRIC_NAMES = [
     "si_sdr", "si_sir", "si_sar", "sd_sdr", "snr", "srr",
@@ -244,6 +245,9 @@ def make_device_eval(
 
 
 def _policy(cfg, state_dict, num_actions: int, device) -> Move2HearPolicy:
+    """The policy of `cfg`, loading `state_dict` strictly (a reference
+    checkpoint that was not converted raises, naming the import script)."""
+    refuse_reference_layout(state_dict, "the evaluated checkpoint")
     p = cfg.RL.PPO
     policy = Move2HearPolicy(
         num_actions=num_actions, hidden_size=p.hidden_size,
@@ -276,6 +280,12 @@ def setup_device_eval(
     switch = p.switch_policy
     action_codes = tuple(int(Action[a]) for a in cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
     if switch:
+        if "state_dict_nav" not in ckpt or "state_dict_qualImprov" not in ckpt:
+            raise KeyError(
+                f"RL.PPO.switch_policy needs a switch checkpoint, not one holding "
+                f"{sorted(ckpt)}: merge one with scripts/torch_merge_switch_ckpt.py "
+                "NAV_CKPT QUALIMPROV_CKPT OUT_CKPT"
+            )
         policy_nav = _policy(cfg, ckpt["state_dict_nav"], len(action_codes), device)
         policy_qi = _policy(cfg, ckpt["state_dict_qualImprov"], len(action_codes), device)
     else:

@@ -12,6 +12,17 @@ config, resolve the trainer from the registry, dispatch train/eval.
     python -m move2hear_tpu_torch.main --run-type eval \\
         --exp-config configs/test/nearTarget.yaml --model-dir DIR \\
         [--device cpu] EVAL_CKPT_PATH_DIR DIR/data/ckpt.N.pth
+    python -m move2hear_tpu_torch.main --run-type train \\
+        --exp-config configs/train/farTarget.yaml --model-dir FAR [--device cpu] \\
+        RL.PPO.pretrained_passive_separators_ckpt PRE/data/best_ckpt_nonoverlapping_val.pth
+    python scripts/torch_merge_switch_ckpt.py FAR/data/ckpt.N.pth \\
+        DIR/data/ckpt.M.pth SWITCH.pth
+    python -m move2hear_tpu_torch.main --run-type eval \\
+        --exp-config configs/test/farTarget.yaml --model-dir EV [--device cpu] \\
+        EVAL_CKPT_PATH_DIR SWITCH.pth
+
+A reference checkpoint is converted first, with
+``scripts/torch_import_ref_ckpt.py IN.pth OUT.pth``.
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and never falls back
 on its own.

@@ -7,8 +7,8 @@ One collect runs a T-step rollout as a Python loop under ``torch.no_grad``:
 last reward's q and the bootstrap value. All tensors stay on the device;
 the logging stats come back packed in one (T, N, K) tensor.
 
-Reward semantics match the reference (env_utils.py:690-714 applied at
-ppo_trainer.py:385-405):
+Separation rewards (near-target) match the reference (env_utils.py:690-714
+applied at ppo_trainer.py:385-405):
   r_t = not_done_t * (q_{t+1} - q_t)            at ordinary steps,
   r_t = not_done_t * 2 * extra_mult * q_{t+1}   at episode step MAX-2,
   q = -MSE(memPred, gt_mono) / mean(gt_mono^2).
@@ -16,6 +16,8 @@ The bonus-step form reproduces the reference's list aliasing: the "extra"
 override_rewards call MUTATES the same rewards list it returns, so
 ``np.array(rewards) + np.array(rewards_extra)`` doubles extra_mult*q_next
 and the quality-improvement delta is discarded (ppo_trainer.py:395-405).
+Navigation rewards (far-target) are the env's decrease of the geodesic
+distance to the target, times ``nav_reward_scale``.
 
 The separator refit trains only the acoustic memory, on the frozen
 separators' outputs that the collect cached (``pred_mono``, ``gt_mono``,
@@ -162,10 +164,17 @@ def make_collect(
     pol_sensors: Tuple[str, ...],
     pose_obs: bool = False,
     sampler: Optional[Callable[[Categorical, int], torch.Tensor]] = None,
+    sep_rewards: bool = True,
+    nav_reward_scale: float = 0.0,
 ):
-    """The rollout collector with separation rewards:
+    """The rollout collector:
     ``collect(dev, env_state, hidden, masks, prev_mem_masked, generator)``
     -> CollectOutput.
+
+    sep_rewards: separation rewards (near-target); when false, navigation
+    rewards ``nav_reward * nav_reward_scale`` (far-target). The separator
+    outputs, ``q`` and the sep slab are the same in both: the refit runs in
+    both tasks.
 
     `sampler(dist, t)` draws the (N, 1) actions of step t; by default
     ``dist.sample(generator)``. A test passes one that replays the actions
@@ -250,6 +259,7 @@ def make_collect(
                 "masks_in": masks, "masks_next": masks_next, "prev_mem_in": prev_mem_masked,
                 "q": q_util(pred_mem, gt_mono_mag), "bin_l2": bin_l2, "mono_l2": mono_l2,
                 "mem_l2": mem_l2, "at_bonus": at_bonus, "done": info["done"],
+                "nav_reward": info["nav_reward"],
                 "geo": info["geo"], "ndg": info["ndg"], "probs": act.probs,
                 "sound_ids": obs_idx.sound_ids, "az_idx": obs_idx.azimuth_idx,
                 "scene_idx": obs_idx.scene_idx, "node": obs_idx.node,
@@ -275,9 +285,13 @@ def make_collect(
         q = stacked("q")
         q_full = torch.cat([q, q_t[None]], dim=0)
         done = stacked("done").to(torch.float32)
-        rewards = sep_reward(
-            q_full[:-1], q_full[1:], 1.0 - done, stacked("at_bonus"), extra_reward_multiplier,
-        )[:, :, None]  # (T, N, 1)
+        if sep_rewards:
+            rewards = sep_reward(
+                q_full[:-1], q_full[1:], 1.0 - done, stacked("at_bonus"), extra_reward_multiplier,
+            )
+        else:
+            rewards = stacked("nav_reward") * nav_reward_scale
+        rewards = rewards[:, :, None]  # (T, N, 1)
 
         # the (T+1)-slot views make_update_pol reads
         masks_full = torch.cat([steps[0]["masks_in"][None], stacked("masks_next")], dim=0)

@@ -24,6 +24,7 @@ from typing import Dict, List, Optional
 import torch
 
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
+from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 EPS_PPO = 1e-5
 
@@ -124,8 +125,21 @@ def create_agent_state(cfg: PPOConfig, policy: Move2HearPolicy) -> AgentState:
 
 def load_pretrained_passive_separators(policy: Move2HearPolicy, state_dict: Dict[str, torch.Tensor]):
     """Copy the four passive-separator subtrees by name from a port state
-    dict (ppo.py:59-70); shapes must match exactly."""
+    dict (ppo.py:59-70). Every tensor of those subtrees must be there with
+    its shape, as the JAX package's loader indexes each subtree: a dict that
+    lacks any (``{}``, another file, a reference checkpoint that was not
+    converted) raises ``KeyError`` naming the missing keys, and a shape
+    mismatch or an unknown passive key raises ``ValueError``. Nothing is
+    copied unless everything checks."""
     own = policy.state_dict()
+    wanted = [k for k in own if k.split(".")[0] in PASSIVE_KEYS]
+    missing = [k for k in wanted if k not in state_dict]
+    if missing:
+        refuse_reference_layout(state_dict, "the pretrained passive separators")
+        raise KeyError(
+            f"the pretrained passive separators lack {len(missing)} of their "
+            f"{len(wanted)} tensors: {missing[:4]}{' ...' if len(missing) > 4 else ''}"
+        )
     for name, value in state_dict.items():
         if name.split(".")[0] not in PASSIVE_KEYS:
             continue
@@ -134,7 +148,8 @@ def load_pretrained_passive_separators(policy: Move2HearPolicy, state_dict: Dict
                 f"shape mismatch in {name}: "
                 f"{tuple(own[name].shape) if name in own else None} vs {tuple(value.shape)}"
             )
-        own[name].copy_(value)
+    for name in wanted:
+        own[name].copy_(state_dict[name])
 
 
 def _normalized_advantages(advantages: torch.Tensor, use_normalized: bool) -> torch.Tensor:

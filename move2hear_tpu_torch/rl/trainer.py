@@ -4,11 +4,14 @@ checkpoint evaluation on the device route.
 
 Cyclic schedule (ppo_trainer.py:730-994): num_updates_per_cycle x
 (collect num_steps + policy update), then one cached separator refit over
-the cycle's buffer. Separation rewards only (near-target). Not ported yet,
-and raising NotImplementedError: the episode-keyed RIR sub-banks and the
-host env path (``TPU.RIR_MODE`` sub/host, banks over
-``TPU.MAX_DEVICE_BANK_BYTES``), DDPPO across processes (world size > 1),
-navigation rewards, the host evaluator and file-backed scene data.
+the cycle's buffer. Separation rewards (near-target,
+``sep_reward_weight`` 1 and ``nav_reward_weight`` 0) or navigation rewards
+(far-target, 0 and 1). Not ported yet, and raising NotImplementedError: the
+episode-keyed RIR sub-banks and the host env path (``TPU.RIR_MODE``
+sub/host, banks over ``TPU.MAX_DEVICE_BANK_BYTES``), DDPPO across
+processes (world size > 1), other reward weightings, the host evaluator,
+file-backed scene data, and the JAX package's ``TPU`` knobs that
+``refuse_unported_knobs`` lists.
 """
 
 import logging
@@ -42,6 +45,7 @@ from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoin
 from move2hear_tpu_torch.utils.misc import linear_decay
 from move2hear_tpu_torch.utils.registry import registry
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
+from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 logger = logging.getLogger(__name__)
 
@@ -56,6 +60,43 @@ def has_file_backed_data(task_config) -> bool:
         and any(f.endswith(".json.gz") for f in os.listdir(content_dir))
     )
     return has_episodes and os.path.isdir(task_config.SIMULATOR.AUDIO.META_DIR)
+
+
+def refuse_unported_knobs(tpu, training: bool = True) -> None:
+    """Refuse the JAX package's ``TPU`` knobs that the port would not
+    honour. The port's default config lacks them, but its reader takes keys
+    it does not know, so without this they would run as if unset. Dtypes
+    and the mesh apply to evaluation too; the rest only to training."""
+    for key in ("COMPUTE_DTYPE", "SEP_SLAB_DTYPE", "SEP_REFIT_DTYPE", "SUB_BANK_DTYPE"):
+        value = str(tpu.get(key, "float32"))
+        if value not in ("float32", ""):
+            raise NotImplementedError(
+                f"TPU.{key}={value}: the port computes and stores in float32 only; "
+                "other dtypes are not ported yet (ROADMAP Queue 1 item 5)"
+            )
+    if any(int(d) > 1 for d in tpu.get("MESH_SHAPE", [1])):
+        raise NotImplementedError(
+            f"TPU.MESH_SHAPE={list(tpu.MESH_SHAPE)}: the port runs on one device; "
+            "data parallelism is not ported yet (ROADMAP Queue 1 item 4)"
+        )
+    if not training:
+        return
+    for key in ("FUSED_CYCLE", "PAIRWISE_FUSION", "REPORT_MFU"):
+        if bool(tpu.get(key, False)):
+            raise NotImplementedError(
+                f"TPU.{key}=True is not ported yet (ROADMAP Queue 1 item 5); the "
+                "port runs the collect, the update and the refit as separate loops"
+            )
+    if int(tpu.get("COLLECT_UNROLL", 1)) > 1:
+        raise NotImplementedError(
+            f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL} is not ported yet (ROADMAP Queue 1 "
+            "item 5); the collect is a Python loop"
+        )
+    if int(tpu.get("SUB_BANK_ROWS", 0)) > 0:
+        raise NotImplementedError(
+            f"TPU.SUB_BANK_ROWS={tpu.SUB_BANK_ROWS}: the RIR sub-banks are not ported "
+            "yet (ROADMAP Queue 1 item 2)"
+        )
 
 
 def world_size() -> int:
@@ -118,6 +159,7 @@ class PPOTrainer(BaseRLTrainer):
         ported (RIR_MODE auto when the banks fit, or dense)."""
         cfg = self.config
         forced = str(cfg.TPU.RIR_MODE)
+        refuse_unported_knobs(cfg.TPU)
         if forced not in ("auto", "dense", "sub", "host"):
             raise ValueError(f"TPU.RIR_MODE must be auto|dense|sub|host, got {forced!r}")
         if forced in ("sub", "host") or not cfg.TPU.DEVICE_ENV:
@@ -132,10 +174,12 @@ class PPOTrainer(BaseRLTrainer):
                 "not ported yet (ROADMAP Queue 1 item 4)"
             )
         p = cfg.RL.PPO
-        if not (p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0):
+        if (p.sep_reward_weight, p.nav_reward_weight) not in ((1.0, 0.0), (0.0, 1.0)):
             raise NotImplementedError(
-                "navigation rewards (far-target training) are not ported yet "
-                "(ROADMAP Queue 1 item 3); the port trains with separation rewards"
+                f"sep_reward_weight {p.sep_reward_weight} with nav_reward_weight "
+                f"{p.nav_reward_weight}: the device path trains with separation rewards "
+                "(1, 0) or navigation rewards (0, 1), as the JAX package's does; it "
+                "has no route that weighs the two"
             )
         bundle = self._make_bundle()
         if forced == "auto" and de.estimate_bank_bytes(bundle) > int(cfg.TPU.MAX_DEVICE_BANK_BYTES):
@@ -150,11 +194,11 @@ class PPOTrainer(BaseRLTrainer):
         """The device training loop on the separate-programs route: per
         cycle, `num_updates_per_cycle` x (collect + policy update), then the
         cached separator refit. Per cycle it records, in
-        ``self.cycle_log``, the seconds of each phase and the env-steps it
-        ran. The phases are timed by marks on the device's timeline (CUDA
-        events, read at the stats fetch, so the loop never waits for the
-        device only to time it; the host clock on the CPU, which finishes
-        each op before it returns)."""
+        ``self.cycle_log``, the seconds of each phase, the env-steps it ran
+        and the mean |reward| of its steps. The phases are timed by marks
+        on the device's timeline (CUDA events, read at the stats fetch, so
+        the loop never waits for the device only to time it; the host clock
+        on the CPU, which finishes each op before it returns)."""
         cfg = self.config
         ppo_cfg = self._ppo_config()
         p = cfg.RL.PPO
@@ -203,6 +247,7 @@ class PPOTrainer(BaseRLTrainer):
         resume_path = cfg.RESUME_CKPT
         if resume_path:
             ckpt = load_checkpoint(resume_path)
+            refuse_reference_layout(ckpt["state_dict"], f"RESUME_CKPT {resume_path}")
             policy.load_state_dict(ckpt["state_dict"])
             state.opt_pol.load_state_dict(ckpt["optimizer_pol"])
             state.opt_sep.load_state_dict(ckpt["optimizer_sep"])
@@ -226,6 +271,9 @@ class PPOTrainer(BaseRLTrainer):
         collect = make_collect(
             policy, ppo_cfg, t_steps, max_ep_steps, gt_norm, p.extra_reward_multiplier,
             action_codes, tuple(pol_sensors), pose_obs=pose_obs,
+            sep_rewards=p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0,
+            nav_reward_scale=(cfg.RL.DISTANCE_REWARD_SCALE if cfg.RL.WITH_DISTANCE_REWARD
+                              else 0.0),
         )
         update_pol = make_update_pol(policy, ppo_cfg, n_envs, pose_bank=pose_obs)
         update_sep = make_update_sep_from_slabs(policy, ppo_cfg, cycle)
@@ -290,9 +338,11 @@ class PPOTrainer(BaseRLTrainer):
                             torch.stack(pol_l), sep_losses, marks))
 
             if len(pending) >= stats_interval or cycle_idx == num_cycles - 1:
+                reward_abs = []
                 for steps_at, upd_at, packed, pol_h, sep_h, _ in pending:
                     st = unpack_stats(packed.cpu().numpy())
                     st_flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st.items()}
+                    reward_abs.append(float(np.abs(st_flat["reward"]).mean()))
                     self._absorb_stats(st_flat, windows, cur_ep)
                     probs_win.append(st_flat["probs"].mean(axis=(0, 1)))
                     pol_h, sep_h = pol_h.cpu().numpy(), sep_h.cpu().numpy()
@@ -303,13 +353,14 @@ class PPOTrainer(BaseRLTrainer):
                     self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1],
                                            lr_now, steps_at)
                 # the fetch above waited for every mark of the flushed cycles
-                for *_, m in pending:
+                for (*_, m), r_abs in zip(pending, reward_abs):
                     self.cycle_log.append({
                         "collect": sum(secs(a, b) for a, b in zip(m[0:-1:2], m[1:-1:2])),
                         "update": sum(secs(a, b) for a, b in zip(m[1:-1:2], m[2:-1:2])),
                         "refit": secs(m[-2], m[-1]),
                         "total": secs(m[0], m[-1]),
                         "env_steps": cycle * t_steps * n_envs,
+                        "reward_abs_mean": r_abs,
                     })
                 pending.clear()
                 value_loss, action_loss, entropy = pol_h[-1]
@@ -421,6 +472,7 @@ class PPOTrainer(BaseRLTrainer):
             config = self._setup_eval_config(ckpt["config"], cfg)
         else:
             config = cfg
+        refuse_unported_knobs(config.TPU, training=False)
 
         bundle = self._bundle
         if bundle is None and has_file_backed_data(config.TASK_CONFIG):

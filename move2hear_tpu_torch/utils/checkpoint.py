@@ -5,6 +5,14 @@ dict and the config dict,
     {"state_dict_nav": ..., "state_dict_qualImprov": ...,
      "config_nav": ..., "config_qualImprov": ...}               # switch policy
 
+The switch layout is the reference's own; ``eval/switch.py`` (CLI
+``scripts/torch_merge_switch_ckpt.py``) writes it from a far-target and a
+near-target checkpoint. A checkpoint converted from the reference
+(``utils/torch_import.py``, CLI ``scripts/torch_import_ref_ckpt.py``) has
+one of these layouts with ``config`` ``{}`` and adds ``imported_from`` and
+``layout``. A state dict is always in the port's names; a reference state
+dict (keys ``actor_critic.…``) is refused where it would be loaded.
+
 A training checkpoint adds both optimizer states and the update count,
 ``{"optimizer_pol": ..., "optimizer_sep": ..., "extra_state":
 {"update_count": n}}``; the evaluator reads its ``state_dict`` and

@@ -33,8 +33,8 @@ from move2hear_tpu_torch.models import Move2HearPolicy
 from move2hear_tpu_torch.ops import kernels
 from move2hear_tpu_torch.rl import device_rollout as tdr
 from move2hear_tpu_torch.rl import ppo as tppo
-from move2hear_tpu_torch.rl.trainer import PPOTrainer
-from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+from move2hear_tpu_torch.rl.trainer import PPOTrainer, refuse_unported_knobs
+from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
 
 HID, N, T, MAX_STEPS, GT_NORM = 64, 2, 4, 3, 1.2
@@ -213,9 +213,10 @@ def test_two_cycles_train_checkpoint_evaluate_and_resume(tmp_path):
 
 
 def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
-    """chip_smoke.py's train and train-parity phases, small and on the CPU
-    (both devices the CPU), so their own logic is tested before a card
-    runs them."""
+    """chip_smoke.py's train, far-train, switch merge and far-eval,
+    switch-parity and train-parity phases, small and on the CPU (both
+    devices the CPU), so their own logic is tested before a card runs
+    them."""
     import chip_smoke
 
     run_dir = str(tmp_path / "smoke")
@@ -224,20 +225,56 @@ def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
             "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", str(MAX_STEPS),
             "TPU.MAX_RIR_LENGTH", "400", "EVAL_EPISODE_COUNT", "2",
             "TPU.DEVICE_EVAL_MIN_EPISODES", "2"]
-    counts = chip_smoke.train_phase(torch, kernels, "cpu", run_dir, device="cpu", opts=opts,
-                                    launches=dict.fromkeys(kernels.KERNEL_WRAPPERS, 0))
-    assert counts == dict.fromkeys(kernels.KERNEL_WRAPPERS, 0)
+    zero = dict.fromkeys(kernels.KERNEL_WRAPPERS, 0)
+    counts, near_ckpt, _ = chip_smoke.train_phase(torch, kernels, "cpu", run_dir,
+                                                  device="cpu", opts=opts, launches=zero)
+    assert counts == zero
+    chip_smoke.train_eval_phase(run_dir, near_ckpt, device="cpu", opts=opts)
+    far_counts, far_ckpt, far_trainer = chip_smoke.train_phase(
+        torch, kernels, "cpu", os.path.join(run_dir, "far"), label="far-train",
+        exp=chip_smoke.FAR_TRAIN_EXP, device="cpu", opts=opts, launches=zero)
+    assert far_counts == zero and far_ckpt != near_ckpt
+    chip_smoke.require_nav_rewards(far_trainer)
+    assert load_checkpoint(far_ckpt)["config"]["RL"]["PPO"]["nav_reward_weight"] == 1.0
+    eval_counts = chip_smoke.far_eval_phase(
+        torch, kernels, "cpu", run_dir, far_ckpt, near_ckpt, device="cpu", launches=zero,
+        episodes=2, opts=["EVAL_EPISODE_COUNT", "2", "TPU.DEVICE_EVAL_MIN_EPISODES", "2",
+                          "TPU.MAX_RIR_LENGTH", "400", "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS",
+                          "4", "RL.PPO.time_thres_for_pol_switch", "2"])
+    assert eval_counts == zero
+    chip_smoke.parity_phase(torch, switch=True, devices=("cpu", "cpu"), n_envs=2, hid=HID)
     chip_smoke.train_parity_phase(torch, devices=("cpu", "cpu"), t=T, n=N, hid=HID)
     out = capsys.readouterr().out
     assert "cycle 1 (warm)" in out and "eval of ckpt.2.pth" in out and "[train-parity]" in out
+    assert "[far-train] cycle 1 (warm)" in out and "far-train-path launches" in out
+    assert "merged ckpt.2.pth (navigation)" in out and "[far-eval] run warm" in out
+    assert "switch at step 2" in out and "[switch-parity]" in out
     shutil.rmtree(run_dir)
+
+
+# The JAX package's TPU knobs the port does not honour: each is refused
+# (ROADMAP Queue 1 items 2, 4 and 5), never run as if unset.
+KNOBS_REFUSED_BY_EVAL = [
+    ["TPU.COMPUTE_DTYPE", "bfloat16"],
+    ["TPU.SEP_SLAB_DTYPE", "bfloat16"],
+    ["TPU.SEP_REFIT_DTYPE", "bfloat16"],
+    ["TPU.SUB_BANK_DTYPE", "bfloat16"],
+    ["TPU.MESH_SHAPE", "[2]"],
+]
 
 
 @pytest.mark.parametrize("opts,env", [
     (["TPU.RIR_MODE", "sub"], {}),
     (["TPU.RIR_MODE", "host"], {}),
-    (["RL.PPO.nav_reward_weight", "1.0", "RL.PPO.sep_reward_weight", "0.0"], {}),
+    (["TPU.COMPUTE_DTYPE", "bfloat16"], {}),
     ([], {"WORLD_SIZE": "2"}),
+    *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL[1:]],
+    (["TPU.FUSED_CYCLE", "True"], {}),
+    (["TPU.PAIRWISE_FUSION", "True"], {}),
+    (["TPU.COLLECT_UNROLL", "4"], {}),
+    (["TPU.REPORT_MFU", "True"], {}),
+    (["TPU.SUB_BANK_ROWS", "64"], {}),
+    (["RL.PPO.nav_reward_weight", "0.5", "RL.PPO.sep_reward_weight", "0.5"], {}),
 ])
 def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
     for k, v in env.items():
@@ -246,6 +283,39 @@ def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
     with pytest.raises(NotImplementedError):
         PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8, rir_length=400),
                    device="cpu").train()
+    assert not os.path.exists(cfg.CHECKPOINT_FOLDER)  # refused before any training
+
+
+@pytest.mark.parametrize("opts", [
+    ["TPU.COMPUTE_DTYPE", "float32"],
+    ["TPU.MESH_SHAPE", "[1]"],
+    ["TPU.FUSED_CYCLE", "False"],
+    ["TPU.COLLECT_UNROLL", "1"],
+    ["TPU.SUB_BANK_ROWS", "0"],
+    ["TPU.SUB_PREFETCH", "True"],
+], ids=lambda o: o[0].split(".")[1])
+def test_the_knobs_at_the_jax_packages_defaults_are_accepted(tmp_path, opts):
+    """A config that sets a knob to the JAX package's default asks for what
+    the port runs, so it is not refused (SUB_PREFETCH matters only in the
+    sub mode, which is refused on its own)."""
+    cfg = get_config(EXP, _train_opts(4) + opts, str(tmp_path), "train")
+    refuse_unported_knobs(cfg.TPU)
+    refuse_unported_knobs(cfg.TPU, training=False)
+
+
+@pytest.mark.parametrize("opts", KNOBS_REFUSED_BY_EVAL)
+def test_eval_refuses_the_knobs_not_ported(tmp_path, opts):
+    ckpt = str(tmp_path / "ckpt.0.pth")
+    torch.manual_seed(0)
+    policy = Move2HearPolicy(3, HID, extra_depth=True, use_ddppo=True)
+    save_checkpoint(ckpt, {"state_dict": policy.state_dict(), "config": {}})
+    cfg = get_config("configs/test/nearTarget.yaml",
+                     ["RL.PPO.hidden_size", str(HID), "EVAL_EPISODE_COUNT", "2",
+                      "TPU.DEVICE_EVAL_MIN_EPISODES", "2", "TPU.MAX_RIR_LENGTH", "400", *opts],
+                     str(tmp_path), "eval")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        PPOTrainer(cfg, device="cpu")._eval_checkpoint(ckpt)
+    assert not os.path.exists(tmp_path / "test_nearTarget_stats_ckpt_0_0.json")
 
 
 def test_load_pretrained_passive_separators_copies_only_the_passive_subtrees():
@@ -261,3 +331,27 @@ def test_load_pretrained_passive_separators_copies_only_the_passive_subtrees():
     bad = dict(donor, **{"binSep_enc.cnn.0.0.weight": torch.zeros(1)})
     with pytest.raises(ValueError):
         tppo.load_pretrained_passive_separators(policy, bad)
+
+
+@pytest.mark.parametrize("case", ["empty", "reference_prefixed", "missing_one_unet"])
+def test_load_pretrained_passive_separators_refuses_an_incomplete_dict(case):
+    """A dict without every passive tensor raises and copies nothing: {},
+    a reference checkpoint's state dict (keys ``actor_critic.…``; the
+    message names the import script) and one missing a U-Net."""
+    torch.manual_seed(0)
+    policy = Move2HearPolicy(3, HID, extra_depth=True, use_ddppo=True)
+    torch.manual_seed(1)
+    donor = Move2HearPolicy(3, HID, extra_depth=True, use_ddppo=True).state_dict()
+    before = {k: v.clone() for k, v in policy.state_dict().items()}
+    if case == "empty":
+        given, error, match = {}, KeyError, "lack 124 of their 124"
+    elif case == "reference_prefixed":
+        given = {"actor_critic." + k: v for k, v in donor.items()}
+        error, match = ValueError, "scripts/torch_import_ref_ckpt.py"
+    else:
+        given = {k: v for k, v in donor.items() if not k.startswith("bin2mono_dec.")}
+        error, match = KeyError, "bin2mono_dec.cnn.0.0.weight"
+    with pytest.raises(error, match=match):
+        tppo.load_pretrained_passive_separators(policy, given)
+    for k, v in policy.state_dict().items():
+        assert torch.equal(v, before[k]), k
