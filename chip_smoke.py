@@ -54,6 +54,21 @@ Phases, each printing its own line(s) with its seconds:
      FAR_EVAL_LAUNCHES;
  8c. switch-parity: a short switch-policy eval on the card (TF32 off)
      against the same eval on the CPU's plain path, as phase 5;
+ 8d. scale-train: ``PPOTrainer(cfg, bundle=build_scale_fixture()).train()``
+     with configs/train/nearTarget.yaml at full width (phase 8's cycle) for 2
+     cycles from phase 6's separators, on the 8-scene fixture (V = 300,
+     16,000-sample RIRs) whose dense RIR bank (368.6 GB) does not fit: the
+     gate must choose the RIR sub-banks. Slab rows and GB, rows assembled
+     and uploaded and host seconds in rollout_inputs and prefetch per cycle,
+     peak device memory, host memory, set-up, per-cycle seconds, warm
+     env-steps/s, finite losses, launch counters equal to
+     SCALE_TRAIN_LAUNCHES; the slab's gather past 2**31 elements bitwise
+     equal to rows assembled anew, and its time; then scale-parity: on a
+     2-scene fixture small enough for dense (TF32 off), one collect in each
+     mode gives bitwise equal mixture magnitudes, the episode -> slot table
+     keeps the slab gather bitwise equal to the dense one through 5 windows
+     of the trainer's micro-scene, and one training cycle's parameters agree
+     within TRAIN_TOL (losses) and TRAIN_DP_TOL;
   9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -116,6 +131,17 @@ TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice
 # far-train: the train cycle's shape (14 envs x 20 steps, 6 updates, 4
 # PPO epochs): the navigation reward adds no separator call, so 552 as train.
 FAR_TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# scale-train: the train cycle's shape again; at scale the update runs the
+# visual encoder per stored step (the 9,600 poses exceed the 280 steps),
+# which makes no separator call: 552 as train.
+SCALE_TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# bench.py's scale fixture: 8 grid scenes of V = 300 nodes, 12 episodes each,
+# 16,000-sample RIRs, frames
+SCALE_FIXTURE = dict(num_scenes=8, rows=15, cols=20, episodes_per_scene=12, rir_length=16000,
+                     with_frames=True)
+# scale-parity: 2 scenes of V = 12, small enough for the dense bank (73.7 MB)
+SCALE_PARITY_FIXTURE = dict(num_scenes=2, rows=3, cols=4, episodes_per_scene=6,
+                            rir_length=16000, with_frames=True)
 # far-eval: 16 envs x 100 steps x 4 batches (64 episodes); either policy of
 # the switch makes the eval's 2 masked_mix_slice16 and 1 overlap_add a step.
 FAR_EVAL_LAUNCHES = {"masked_mix_slice16": 800, "overlap_add": 400, "masked_mix_slice16_bwd": 0}
@@ -640,6 +666,273 @@ def train_phase(torch, kernels, card, run_dir, label="train", exp=TRAIN_EXP, dev
               f"tensors (BatchNorm statistics included) are unchanged in {os.path.basename(ckpt)}",
               flush=True)
     return counts, ckpt, trainer
+
+
+def scale_train_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
+                      launches=SCALE_TRAIN_LAUNCHES, pretrained="", fixture=SCALE_FIXTURE):
+    """Phase 8d: the trainer as bench.py drives the JAX package, with
+    configs/train/nearTarget.yaml at full width for 2 cycles on the scale
+    fixture, RIR_MODE auto at the default budget, with the launch counters
+    set to 0 just before it and read just after. Returns the path's launch
+    counts. (`device`, `opts`, `launches` and `fixture` let a rehearsal run
+    it small on the CPU.)"""
+    import gc
+    import resource
+
+    import numpy as np
+
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.micro_scene import build_scale_fixture
+    from move2hear_tpu_torch.env.sub_bank import _count_unique_keys
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    bundle = build_scale_fixture(**fixture)
+    cfg = get_config(TRAIN_EXP, [*TRAIN_OPTS, "RL.PPO.pretrained_passive_separators_ckpt",
+                                 pretrained, *opts], run_dir, "train")
+    on_cuda = device == "cuda"
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer = PPOTrainer(cfg, bundle=bundle, device=device)
+    trainer.train()
+    if on_cuda:
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    if counts != launches:
+        fail(f"scale-train-path kernel launches {counts}, expected {launches}")
+    if trainer._rir_mode != "sub":
+        fail(f"scale-train: the gate chose {trainer._rir_mode!r}, not the RIR sub-banks")
+    cycles, sub = trainer.cycle_log, trainer._sub_bank
+    if len(cycles) != 2 or len(trainer.sub_bank_log) != 2:
+        fail(f"scale-train ran {len(cycles)} cycles, expected 2")
+    print(f"scale-train: {len(bundle.scenes)} scenes of V = {sub._v_pad}, {len(bundle.episodes)} "
+          f"episodes, {_count_unique_keys(bundle)} (scene, source) keys; slab {sub.capacity} rows x "
+          f"{sub.row_bytes / 1e6:.1f} MB = {sub.capacity * sub.row_bytes / 1e9:.2f} GB; {len(sub._key_to_slot)} "
+          f"rows resident after 2 cycles", flush=True)
+    for i, (c, sb) in enumerate(zip(cycles, trainer.sub_bank_log)):
+        phase("scale-train", t0, (
+            f"cycle {i} ({'cold' if i == 0 else 'warm'}): {c['env_steps']} env-steps in "
+            f"{c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; collect "
+            f"{c['collect']:.3f} s, policy update {c['update']:.3f} s, refit {c['refit']:.3f} s; "
+            f"rows assembled {sb['rows_assembled']}, uploaded {sb['rows_uploaded']} "
+            f"({sb['bytes_uploaded'] / 1e9:.3f} GB); host s in rollout_inputs "
+            f"{sb['rollout_inputs_s']:.3f}, in prefetch {sb['prefetch_s']:.3f}; prefetches that "
+            f"returned before the device had run the work queued ahead of them: "
+            f"{sb['prefetch_busy_returns']} of "
+            f"{cfg.RL.PPO.num_updates_per_cycle} ({card})"
+        ))
+    for i, (pol, sep) in enumerate(trainer.loss_log):
+        if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
+            fail(f"scale-train cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
+        print(f"scale-train cycle {i} losses, last update: value {pol[-1][0]:.6f} action "
+              f"{pol[-1][1]:.6f} entropy {pol[-1][2]:.6f}; refit mem {sep[-1][2]:.6f}", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else float("nan")
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) * 1024 for line in f}
+    warm = cycles[1]
+    print(f"scale-train: set-up {trainer.setup_s:.3f} s, warm {warm['env_steps'] / warm['total']:.1f} "
+          f"env-steps/s, end to end {sum(c['env_steps'] for c in cycles) / wall:.1f} env-steps/s over "
+          f"{wall:.3f} s; peak device memory allocated {peak:.2f} GB; host memory "
+          f"{mem['MemTotal'] / 2**30:.1f} GiB, available {mem['MemAvailable'] / 2**30:.1f} GiB, this "
+          f"process's peak RSS {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB; "
+          f"scale-train-path launches: {counts}", flush=True)
+    slab_gather_check(torch, sub, device)
+    del trainer, sub
+    gc.collect()
+    if on_cuda:
+        torch.cuda.empty_cache()
+    return counts
+
+
+def slab_gather_check(torch, sub, device="cuda"):
+    """The end of phase 8d: the collect's gather from the two highest
+    filled slots of the slab (past 2**31 elements at full size, where the
+    index math needs 64 bits) against their rows assembled anew on the host,
+    bitwise; and its device time."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    by_slot = {slot: key for key, slot in sub._key_to_slot.items()}
+    slots = sorted(by_slot)[-2:]
+    rng = np.random.default_rng(SEED)
+    n, v = 14, sub._scene_list[0].num_nodes
+    rows = torch.tensor([slots] * n, dtype=torch.int32, device=device)
+    az = torch.as_tensor(rng.integers(0, 4, n), device=device)
+    node = torch.as_tensor(rng.integers(0, v, n), device=device)
+    got = sub._slab[rows, az[:, None], node[:, None]].cpu().numpy()
+    host = {s: sub._assemble_row(by_slot[s]) for s in slots}
+    want = np.stack([np.stack([host[s][a, u] for s in slots])
+                     for a, u in zip(az.tolist(), node.tolist())])
+    if not np.array_equal(got, want):
+        fail(f"scale-train: the slab gather at slots {slots} differs from the rows assembled anew "
+             f"(max abs err {float(np.abs(got - want).max())})")
+    offset = slots[-1] * math.prod(sub._slab.shape[1:])
+    detail = ""
+    if device == "cuda":
+        ms = eager_ms(lambda: sub._slab[rows, az[:, None], node[:, None]])
+        detail = f"; gather {ms * 1e3:.2f} us a call issued from Python ({got.nbytes} B)"
+    phase("scale-train", t0, (
+        f"gather of {tuple(got.shape)} from slots {slots} (element offset {offset}, "
+        f"{'past' if offset >= 2**31 else 'below'} 2**31) bitwise equal to the rows assembled "
+        f"anew{detail}"
+    ))
+
+
+def window_table_check(torch, device="cuda", n=14, t=20, windows=5):
+    """The end of phase 8d: the sub-bank's episode -> slot table through
+    `windows` windows of the trainer's default micro-scene (4x4, 64
+    episodes, 16 source nodes), a slot per key, prefetched as the trainer
+    does. Later windows bring episodes whose keys are all resident, so no
+    row is uploaded for them: the slab gather must still equal the dense
+    gather at every step, the bootstrap observation included, bitwise."""
+    import dataclasses
+
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.env.micro_scene import build_micro_scene
+    from move2hear_tpu_torch.env.sub_bank import RirSubBank, _count_unique_keys
+
+    t0 = time.perf_counter()
+    bundle = build_micro_scene(rows=4, cols=4, num_episodes=64, near_target=True)
+    dev = torch.device(device)
+    dense = de.build_device_bundle(bundle, dev)
+    sub_dev = de.build_device_bundle(bundle, dev, rir_mode="sub")
+    order = de.make_order_table(n, len(bundle.episodes), SEED)
+    sub = RirSubBank(bundle.scenes, bundle.audio_db, sub_dev.episodes.scene_idx.cpu().numpy(),
+                     sub_dev.episodes.sources.cpu().numpy(), order, t, t,
+                     v_pad=int(sub_dev.scene.positions.shape[1]),
+                     capacity=_count_unique_keys(bundle), device=dev)
+    state = de.env_reset_all(dense.scene, dense.episodes, torch.as_tensor(order, device=dev))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    quiet = 0
+    for w in range(windows):
+        before = sub.rows_uploaded
+        slab, table = sub.rollout_inputs()
+        quiet += sub.rows_uploaded == before
+        dev_w = dataclasses.replace(sub_dev, rir_sub_bank=slab, ep_src_row=table)
+        for step in range(t + 1):
+            obs = de.observe(dense.episodes, state)
+            if not torch.equal(de.gather_sensors(dev_w, obs)["rirs"],
+                               de.gather_sensors(dense, obs)["rirs"]):
+                fail(f"scale-parity: window {w} step {step}: the slab gather differs from the "
+                     "dense gather")
+            if step < t:
+                actions = torch.randint(1, 4, (n,), generator=gen, device=dev)
+                state, _ = de.env_step(dense.scene, dense.episodes, state, actions, t)
+        sub.advance(t)
+        sub.prefetch()
+    phase("scale-parity", t0, (
+        f"{device} episode -> slot table through {windows} windows of ({t}, {n}) (steps, envs) "
+        f"on the 4x4 64-episode micro-scene, {quiet} of them uploading no row: slab gathers "
+        f"bitwise equal to dense at every step"
+    ))
+
+
+def scale_parity_phase(torch, run_dir, device="cuda", opts=(), fixture=SCALE_PARITY_FIXTURE,
+                       t=20, n=14, hid=512):
+    """The end of phase 8d: the sub route against the dense route on the
+    card (TF32 off, cuDNN deterministic), on a fixture small enough for
+    both. One collect (t steps of n envs across an episode end, seeded
+    random weights at hidden `hid`) in each mode, the sub one replaying the
+    dense one's actions: the mixture magnitudes must be bitwise equal. Then
+    one training cycle of configs/train/nearTarget.yaml in each mode: the
+    losses within TRAIN_TOL relative, and each parameter tensor's change
+    within TRAIN_DP_TOL in norm. Both modes render with per-step RIR FFTs
+    (the dense route's cache of RIR rffts, PRECOMPUTE_RIR_RFFT, rounds
+    otherwise), so that the RIRs' source is all that differs. It runs
+    `window_table_check` between the two. (`device`,
+    `opts` and the sizes let a rehearsal run it small on the CPU.)"""
+    import dataclasses
+
+    import numpy as np
+
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.micro_scene import build_scale_fixture
+    from move2hear_tpu_torch.env.sub_bank import RirSubBank
+    from move2hear_tpu_torch.models import Move2HearPolicy
+    from move2hear_tpu_torch.rl.device_rollout import make_collect
+    from move2hear_tpu_torch.rl.ppo import PPOConfig
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+    from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        bundle = build_scale_fixture(**fixture)
+        dev = torch.device(device)
+        torch.manual_seed(SEED + 6)
+        policy = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True).to(dev).eval()
+        order = de.make_order_table(n, len(bundle.episodes), SEED)
+        dense = de.build_device_bundle(bundle, dev)
+        sub_dev = de.build_device_bundle(bundle, dev, rir_mode="sub")
+        sub = RirSubBank(bundle.scenes, bundle.audio_db, sub_dev.episodes.scene_idx.cpu().numpy(),
+                         sub_dev.episodes.sources.cpu().numpy(), order, t, t,
+                         v_pad=int(sub_dev.scene.positions.shape[1]), device=dev)
+        slab, table = sub.rollout_inputs()
+        sub_dev = dataclasses.replace(sub_dev, rir_sub_bank=slab, ep_src_row=table)
+        sensors = ("mixed_bin_audio_mag", "target_class", "rgb", "depth")
+        outs, actions = [], None
+        for bank in (dense, sub_dev):
+            sampler = None if actions is None else (lambda d, i: actions[i])
+            collect = make_collect(policy, PPOConfig(), t, t, 1.2, 10.0, (1, 2, 3), sensors,
+                                   sampler=sampler)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            env = de.env_reset_all(bank.scene, bank.episodes, torch.as_tensor(order, device=dev))
+            out = collect(bank, env, torch.zeros((n, hid), device=dev), torch.ones((n, 1), device=dev),
+                          torch.zeros((n, 512, 32, 1), device=dev), gen)
+            actions = out.rollouts_pol["actions"]
+            outs.append(out.rollouts_pol)
+        mags = [o["observations"]["mixed_bin_audio_mag"] for o in outs]
+        if not torch.equal(*mags):
+            fail(f"scale-parity: sub-mode mixture magnitudes differ from dense by "
+                 f"{float((mags[0] - mags[1]).abs().max())}")
+        if outs[0]["masks"].min() != 0.0:
+            fail("scale-parity: the collect crossed no episode end")
+        del dense, sub_dev, sub, slab
+        window_table_check(torch, device, n=n, t=t)
+
+        losses, params = {}, {}
+        for mode in ("dense", "sub"):
+            cfg = get_config(TRAIN_EXP, ["NUM_UPDATES", "6", "RL.PPO.pretrained_passive_separators_ckpt",
+                                         "", "TPU.PRECOMPUTE_RIR_RFFT", "False", *opts],
+                             os.path.join(run_dir, mode), "train")
+            trainer = PPOTrainer(cfg, bundle=bundle, device=device)
+            start = {k: v.detach().double().cpu().numpy() for k, v in
+                     trainer._new_policy().state_dict().items() if v.is_floating_point()}
+            trainer._train_device(rir_mode=mode)
+            losses[mode] = np.concatenate([np.ravel(x) for x in trainer.loss_log[0]]).astype(np.float64)
+            ckpt = load_checkpoint(os.path.join(cfg.CHECKPOINT_FOLDER, "ckpt.1.pth"))["state_dict"]
+            params[mode] = {k: ckpt[k].double().numpy() for k in start}
+            del trainer
+        loss_err = float(np.max(np.abs(losses["sub"] - losses["dense"])
+                                / np.maximum(np.abs(losses["dense"]), 1e-30)))
+        dp = {k: float(np.linalg.norm(params["sub"][k] - b) / max(np.linalg.norm(b - start[k]), 1e-30))
+              for k, b in params["dense"].items() if not np.array_equal(b, start[k])}
+        key = max(dp, key=dp.get)
+        bitwise = all(np.array_equal(params["sub"][k], b) for k, b in params["dense"].items())
+        if not loss_err <= TRAIN_TOL:
+            fail(f"scale-parity: losses of sub and dense differ by {loss_err} (tol {TRAIN_TOL})")
+        if not dp[key] <= TRAIN_DP_TOL:
+            fail(f"scale-parity: parameter change of {key} differs by {dp[key]} relative in norm "
+                 f"(tol {TRAIN_DP_TOL})")
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    phase("scale-parity", t0, (
+        f"{device} sub vs dense on {fixture['num_scenes']} scenes of V = "
+        f"{fixture['rows'] * fixture['cols']}: one collect over ({t}, {n}) (steps, envs) at hidden "
+        f"{hid}, mixture magnitudes bitwise equal; one cycle: losses max rel err {loss_err:.3e} "
+        f"(tol {TRAIN_TOL}), parameter change max rel err in norm {dp[key]:.3e} ({key}; tol "
+        f"{TRAIN_DP_TOL}), parameters {'bitwise equal' if bitwise else 'not bitwise equal'}"
+    ))
 
 
 def train_eval_phase(run_dir, ckpt, device="cuda", opts=()):
@@ -1239,16 +1532,20 @@ def main():
             torch, kernels, card, os.path.join(run_dir, "far"), label="far-train",
             exp=FAR_TRAIN_EXP, launches=FAR_TRAIN_LAUNCHES, pretrained=pretrained)
         require_nav_rewards(far_trainer)
+        del far_trainer
         far_eval_launches = far_eval_phase(torch, kernels, card, run_dir, far_ckpt, near_ckpt)
+        parity_phase(torch, switch=True)
+        scale_launches = scale_train_phase(torch, kernels, card, os.path.join(run_dir, "scale"),
+                                           pretrained=pretrained)
+        scale_parity_phase(torch, os.path.join(run_dir, "scale_parity"))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    parity_phase(torch, switch=True)
     train_parity_phase(torch)
     pretrain_parity_phase(torch)
 
     by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
                "pretrain_eval": pre_eval_launches, "far_train": far_train_launches,
-               "far_eval": far_eval_launches}
+               "far_eval": far_eval_launches, "scale_train": scale_launches}
     for name, row in rows.items():
         # the launches of every path's runs
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}

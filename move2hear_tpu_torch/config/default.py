@@ -7,8 +7,8 @@ BASE_TASK_CONFIG YAML -> CLI opts, then frozen.
 The keys are the JAX package's, so the YAMLs under configs/ merge
 unchanged. Of its `TPU` group the port keeps, under the same name, only the
 keys its code reads: DEVICE_ENV, DEVICE_EVAL_MIN_EPISODES, MAX_RIR_LENGTH,
-PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, RIR_MODE and
-STATS_FETCH_INTERVAL.
+PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, SUB_BANK_ROWS, SUB_BANK_DTYPE,
+SUB_PREFETCH, RIR_MODE and STATS_FETCH_INTERVAL.
 """
 
 import os
@@ -117,11 +117,19 @@ def default_config() -> Config:
     c.TPU.MAX_RIR_LENGTH = 16000     # static pad length for RIR tensors
     c.TPU.PRECOMPUTE_RIR_RFFT = True  # cache rffts of the whole RIR bank,
     # removing the per-step RIR forward FFTs
-    c.TPU.MAX_DEVICE_BANK_BYTES = 8 * 1024**3  # device-env gate: when the
-    # projected RIR bank of a bundle exceeds this, the trainer refuses the
-    # device route (the streaming host path is not ported yet)
-    c.TPU.RIR_MODE = "auto"  # dense forces the dense device banks, skipping
-    # the MAX_DEVICE_BANK_BYTES gate; sub and host are not ported yet
+    c.TPU.MAX_DEVICE_BANK_BYTES = 40 * 1024**3  # device-env gate: the dense
+    # banks when they fit it, else the RIR sub-banks when they fit it, else
+    # the host path (not ported yet). Half of an H100's 80 GB: the other
+    # half holds the model, Adam state, activations and the cuDNN and cuFFT
+    # workspaces (the JAX package's 8 GiB is half of a 16 GiB TPU v5e)
+    c.TPU.SUB_BANK_ROWS = 0  # slots of the RIR sub-bank (env/sub_bank.py);
+    # 0 = one window's need grown into the budget the fixed banks leave, at
+    # most one a (scene, source) key
+    c.TPU.SUB_BANK_DTYPE = "float32"  # slab storage; bfloat16 is not ported yet
+    c.TPU.SUB_PREFETCH = True  # assemble and upload the next window's rows
+    # after each policy update is queued, while the device runs it
+    c.TPU.RIR_MODE = "auto"  # dense or sub forces that route, skipping the
+    # MAX_DEVICE_BANK_BYTES gate; host is not ported yet
     c.TPU.STATS_FETCH_INTERVAL = 2  # the trainer fetches the packed logging
     # stats to the host every N cycles
 

@@ -55,6 +55,18 @@ class SyntheticAudioDB:
             self._rir_cache[key] = self._make_rir(key)
         return self._rir_cache[key]
 
+    def get_rir_block(self, scene, azimuth, source, num_receivers):
+        """(num_receivers, R, 2) all-receiver column for one (scene, azimuth,
+        source): the assembly of an episode-keyed sub-bank row. It reads
+        the per-key cache but never fills it: a row is V x R x 2 floats, and
+        caching each RIR would grow the host cache without bound."""
+        out = np.empty((num_receivers, self.rir_length, 2), np.float32)
+        for recv in range(num_receivers):
+            key = (scene, int(azimuth), int(recv), int(source))
+            cached = self._rir_cache.get(key)
+            out[recv] = cached if cached is not None else self._make_rir(key)
+        return out
+
     def _make_rir(self, key):
         scene, azimuth, receiver, source = key
         # crc32, not hash(): str hashes are randomized per process

@@ -5,8 +5,9 @@ padded adjacency, edge directions, all-pairs BFS distances); the episodes
 as index tensors with a per-env cursor over an order table; and observation
 banks (frames by node and rotation, the mono-waveform bank with its
 precomputed rffts and GT mono spectrograms, and the binaural-RIR bank by
-azimuth x receiver x source, optionally as precomputed rffts). An
-observation is then a handful of gathers. Movement follows the reference
+azimuth x receiver x source, optionally as precomputed rffts, or in its
+place the episode-keyed slab of ``env/sub_bank.py``). An observation is
+then a handful of gathers. Movement follows the reference
 (simulator_train.py:267-353): orientation = (270 - rotation) mod 360,
 azimuth = -rotation mod 360, forward walks to the FIRST adjacency-ordered
 neighbor whose edge direction matches the orientation (or differs by
@@ -69,6 +70,7 @@ class DeviceObs(NamedTuple):
     sources: torch.Tensor       # (N, S)
     target_class: torch.Tensor  # (N, 1)
     scene_idx: torch.Tensor     # (N,)
+    ep: torch.Tensor            # (N,) episode index
 
 
 @dataclass
@@ -76,12 +78,17 @@ class DeviceBundle:
     scene: DeviceScene
     episodes: DeviceEpisodes
     wav_bank: torch.Tensor                         # (num_sounds, L)
-    rir_bank: torch.Tensor                         # (S, 4, V, V, R, 2)
+    rir_bank: Optional[torch.Tensor]               # (S, 4, V, V, R, 2); None in sub mode
     rgb_bank: Optional[torch.Tensor] = None        # (S, V, 4, H, W, 3) uint8
     depth_bank: Optional[torch.Tensor] = None      # (S, V, 4, H, W, 1)
     wav_rfft_bank: Optional[torch.Tensor] = None   # (num_sounds, NF, 2)
     gt_mono_bank: Optional[torch.Tensor] = None    # (num_sounds, F, T, 2)
     rir_rfft_bank: Optional[torch.Tensor] = None   # (S, 4, V, V, NF, 2, 2)
+    # sub mode (env/sub_bank.py): in place of rir_bank, a slab of
+    # per-(scene, source) rows and the episode -> slot table, which the
+    # trainer sets for each rollout window
+    rir_sub_bank: Optional[torch.Tensor] = None    # (ROWS, 4, V, R, 2)
+    ep_src_row: Optional[torch.Tensor] = None      # (E, S_mix) int32
 
 
 # --- bank and table construction ---------------------------------------------
@@ -232,18 +239,24 @@ def build_gt_mono_bank(wav_bank: torch.Tensor) -> torch.Tensor:
 
 def build_device_bundle(
     bundle: MicroSceneBundle, device, episodes=None, precompute_rir_rfft: bool = False,
+    rir_mode: str = "dense",
 ) -> DeviceBundle:
+    """rir_mode "dense" builds the (S, 4, V, V, R, 2) RIR bank (and its
+    rffts when asked); "sub" builds neither, and the trainer supplies the
+    episode-keyed slab for each window (env/sub_bank.py)."""
+    if rir_mode not in ("dense", "sub"):
+        raise ValueError(f"rir_mode={rir_mode!r}: expected 'dense' or 'sub'")
     eps = episodes if episodes is not None else bundle.episodes
     scenes = bundle.scenes
     rgb_bank = depth_bank = None
     if bundle.frame_cache is not None:
         rgb_bank, depth_bank = build_frame_banks(scenes, bundle.frame_cache, device)
     wav_bank = torch.from_numpy(np.asarray(bundle.audio_db.mono_bank())).to(device)
-    rir_bank = build_rir_bank(scenes, bundle.audio_db, device)
-    rir_rfft_bank = (
-        build_rir_rfft_bank(rir_bank, int(wav_bank.shape[-1]))
-        if precompute_rir_rfft else None
-    )
+    rir_bank = rir_rfft_bank = None
+    if rir_mode == "dense":
+        rir_bank = build_rir_bank(scenes, bundle.audio_db, device)
+        if precompute_rir_rfft:
+            rir_rfft_bank = build_rir_rfft_bank(rir_bank, int(wav_bank.shape[-1]))
     return DeviceBundle(
         scene=build_device_scene(scenes, device),
         episodes=build_device_episodes(eps, bundle.audio_db, scenes, device),
@@ -345,7 +358,20 @@ def observe(episodes: DeviceEpisodes, state: DeviceEnvState) -> DeviceObs:
         sources=episodes.sources[state.ep],
         target_class=episodes.target_class[state.ep][:, None],
         scene_idx=episodes.scene_idx[state.ep],
+        ep=state.ep,
     )
+
+
+def _gather_rirs(bundle: DeviceBundle, obs: DeviceObs) -> torch.Tensor:
+    """(N, S_mix, R, 2) raw RIRs of each env's sources at its azimuth and
+    receiver node: from the dense bank, or from the sub-bank slab through
+    the episode -> slot table."""
+    if bundle.rir_sub_bank is not None:
+        rows = bundle.ep_src_row[obs.ep]  # (N, S_mix) slab slots
+        return bundle.rir_sub_bank[rows, obs.azimuth_idx[:, None], obs.node[:, None]]
+    return bundle.rir_bank[
+        obs.scene_idx[:, None], obs.azimuth_idx[:, None], obs.node[:, None], obs.sources
+    ]
 
 
 def gather_sensors(bundle: DeviceBundle, obs: DeviceObs) -> dict:
@@ -357,12 +383,13 @@ def gather_sensors(bundle: DeviceBundle, obs: DeviceObs) -> dict:
         "gt_mono_raw": bundle.gt_mono_bank[obs.sound_ids],  # (N, S, F, T, 2)
         "mono_len": int(bundle.wav_bank.shape[-1]),
     }
-    where = (obs.scene_idx[:, None], obs.azimuth_idx[:, None], obs.node[:, None], obs.sources)
     if bundle.rir_rfft_bank is not None:
-        out["rir_rfft"] = bundle.rir_rfft_bank[where]
+        out["rir_rfft"] = bundle.rir_rfft_bank[
+            obs.scene_idx[:, None], obs.azimuth_idx[:, None], obs.node[:, None], obs.sources
+        ]
         out["rir_len"] = int(bundle.rir_bank.shape[-2])
     else:
-        out["rirs"] = bundle.rir_bank[where]
+        out["rirs"] = _gather_rirs(bundle, obs)
     if bundle.rgb_bank is not None:
         out["rgb"] = bundle.rgb_bank[obs.scene_idx, obs.node, obs.rot_idx]
     if bundle.depth_bank is not None:

@@ -3,7 +3,7 @@ cache + generated episodes, the data source of the device evaluator when
 no file-backed Matterport3D/SoundSpaces data is configured."""
 
 from dataclasses import dataclass
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 from move2hear_tpu_torch.env.audio_db import SyntheticAudioDB
 from move2hear_tpu_torch.env.episodes import EpisodeDataset, generate_episodes
@@ -19,7 +19,7 @@ class MicroSceneBundle:
 
     scene: Union[GraphScene, Dict[str, GraphScene]]
     audio_db: SyntheticAudioDB
-    frame_cache: SyntheticFrameCache
+    frame_cache: Optional[SyntheticFrameCache]
     episodes: EpisodeDataset
 
     @property
@@ -60,3 +60,46 @@ def build_micro_scene(
         esc_sounds=("esc",),
     )
     return MicroSceneBundle(scene, audio_db, frame_cache, episodes)
+
+
+def build_scale_fixture(
+    num_scenes: int = 8,
+    rows: int = 15,
+    cols: int = 20,
+    episodes_per_scene: int = 12,
+    rir_length: int = 16000,
+    wav_length: int = 16000,
+    with_frames: bool = True,
+    near_target: bool = True,
+    seed: int = 0,
+) -> MicroSceneBundle:
+    """A synthetic fixture at real scene scale: ``num_scenes`` grid scenes
+    (``scale00``, ``scale01``, ...) of V = rows*cols nodes each (Matterport
+    graphs hold about 100-1000 nodes) with full-length 16 kHz RIRs, and the
+    episodes of every scene (scene i drawn from seed ``seed + 101*i``) in
+    one dataset. Its dense RIR bank grows with V^2 per scene and does not
+    fit a device, so it trains through the episode-keyed sub-banks
+    (env/sub_bank.py)."""
+    scenes = {}
+    episodes = []
+    for i in range(num_scenes):
+        name = f"scale{i:02d}"
+        scenes[name] = GraphScene.grid(name, rows, cols)
+        episodes += generate_episodes(
+            scenes[name],
+            DEFAULT_SOUNDS,
+            episodes_per_scene,
+            near_target=near_target,
+            seed=seed + 101 * i,
+            esc_sounds=("esc",),
+        ).episodes
+    audio_db = SyntheticAudioDB(
+        DEFAULT_SOUNDS, wav_length=wav_length, rir_length=rir_length, seed=seed,
+    )
+    frame_cache = SyntheticFrameCache() if with_frames else None
+    return MicroSceneBundle(
+        scene=scenes,
+        audio_db=audio_db,
+        frame_cache=frame_cache,
+        episodes=EpisodeDataset(episodes),
+    )

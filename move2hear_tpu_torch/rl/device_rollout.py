@@ -1,5 +1,8 @@
 """On-device rollout collection and the cached separator refit (the JAX
-package's ``rl/device_rollout.py``, dense-bank route).
+package's ``rl/device_rollout.py``, separate-programs route). The collect
+gathers its RIRs from the dense bank or from the sub-bank slab and table
+that ``dev`` holds for the window (``env/device_env.py:gather_sensors``);
+the refit reads only what the collect cached, never the RIRs.
 
 One collect runs a T-step rollout as a Python loop under ``torch.no_grad``:
 {render from the banks -> separator chain -> acoustic memory -> policy act

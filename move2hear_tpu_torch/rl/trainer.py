@@ -1,19 +1,21 @@
 """The PPO trainer (``audio_separation/rl/ppo/ppo_trainer.py``; the JAX
-package's ``rl/trainer.py``): device-path training on the dense banks and
-checkpoint evaluation on the device route.
+package's ``rl/trainer.py``): device-path training and checkpoint
+evaluation on the device route.
 
 Cyclic schedule (ppo_trainer.py:730-994): num_updates_per_cycle x
 (collect num_steps + policy update), then one cached separator refit over
 the cycle's buffer. Separation rewards (near-target,
 ``sep_reward_weight`` 1 and ``nav_reward_weight`` 0) or navigation rewards
-(far-target, 0 and 1). Not ported yet, and raising NotImplementedError: the
-episode-keyed RIR sub-banks and the host env path (``TPU.RIR_MODE``
-sub/host, banks over ``TPU.MAX_DEVICE_BANK_BYTES``), DDPPO across
-processes (world size > 1), other reward weightings, the host evaluator,
-file-backed scene data, and the JAX package's ``TPU`` knobs that
-``refuse_unported_knobs`` lists.
+(far-target, 0 and 1). The RIRs come from the dense banks, or, where those
+exceed ``TPU.MAX_DEVICE_BANK_BYTES`` or ``TPU.RIR_MODE`` is sub, from the
+episode-keyed sub-bank slab (``env/sub_bank.py``). Not ported yet, and
+raising NotImplementedError: the host env path (``TPU.RIR_MODE`` host, a
+sub-bank over the budget), DDPPO across processes (world size > 1), other
+reward weightings, the host evaluator, file-backed scene data, and the JAX
+package's ``TPU`` knobs that ``refuse_unported_knobs`` lists.
 """
 
+import dataclasses
 import logging
 import os
 import time
@@ -25,6 +27,15 @@ import torch
 import move2hear_tpu_torch.env.device_env as de
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.env.sim import Action
+from move2hear_tpu_torch.env.sub_bank import (
+    RirSubBank,
+    _count_unique_keys,
+    estimate_sub_bank_bytes,
+    fixed_bank_bytes,
+    max_capacity_for_budget,
+    row_bytes,
+    sub_bank_capacity,
+)
 from move2hear_tpu_torch.eval.device_evaluator import evaluate_checkpoint_device
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
@@ -92,11 +103,6 @@ def refuse_unported_knobs(tpu, training: bool = True) -> None:
             f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL} is not ported yet (ROADMAP Queue 1 "
             "item 5); the collect is a Python loop"
         )
-    if int(tpu.get("SUB_BANK_ROWS", 0)) > 0:
-        raise NotImplementedError(
-            f"TPU.SUB_BANK_ROWS={tpu.SUB_BANK_ROWS}: the RIR sub-banks are not ported "
-            "yet (ROADMAP Queue 1 item 2)"
-        )
 
 
 def world_size() -> int:
@@ -155,18 +161,19 @@ class PPOTrainer(BaseRLTrainer):
 
     # ------------------------------------------------------------------
     def train(self) -> None:
-        """Dispatch to the device path on the dense banks, the one route
-        ported (RIR_MODE auto when the banks fit, or dense)."""
+        """Dispatch to the device path, on the dense banks or the RIR
+        sub-banks. RIR_MODE dense or sub forces that route; auto takes dense
+        when its banks fit TPU.MAX_DEVICE_BANK_BYTES, else sub when the
+        sub-bank at one window's capacity fits it."""
         cfg = self.config
         forced = str(cfg.TPU.RIR_MODE)
         refuse_unported_knobs(cfg.TPU)
         if forced not in ("auto", "dense", "sub", "host"):
             raise ValueError(f"TPU.RIR_MODE must be auto|dense|sub|host, got {forced!r}")
-        if forced in ("sub", "host") or not cfg.TPU.DEVICE_ENV:
+        if forced == "host" or not cfg.TPU.DEVICE_ENV:
             raise NotImplementedError(
-                f"TPU.RIR_MODE={forced} / DEVICE_ENV={cfg.TPU.DEVICE_ENV}: the "
-                "RIR sub-banks and the host env path are not ported yet "
-                "(ROADMAP Queue 1 items 2 and 3)"
+                f"TPU.RIR_MODE={forced} / DEVICE_ENV={cfg.TPU.DEVICE_ENV}: the host "
+                "env path is not ported yet (ROADMAP Queue 1 item 3)"
             )
         if world_size() > 1:
             raise NotImplementedError(
@@ -182,15 +189,59 @@ class PPOTrainer(BaseRLTrainer):
                 "has no route that weighs the two"
             )
         bundle = self._make_bundle()
-        if forced == "auto" and de.estimate_bank_bytes(bundle) > int(cfg.TPU.MAX_DEVICE_BANK_BYTES):
+        if forced in ("dense", "sub"):
+            # an explicit route skips the budget: a bank too large for the
+            # device fails loudly when it is allocated
+            self._train_device(rir_mode=forced)
+            return
+        budget = int(cfg.TPU.MAX_DEVICE_BANK_BYTES)
+        dense = de.estimate_bank_bytes(bundle)
+        if dense <= budget:
+            self._train_device()
+            return
+        # the dense RIR bank grows with V^2 per scene; the sub-bank, V-linearly
+        sub = estimate_sub_bank_bytes(
+            bundle, cfg.NUM_PROCESSES, cfg.NUM_SOUNDS_IN_MIX, p.num_steps,
+            cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
+        )
+        if sub > budget:
             raise NotImplementedError(
-                "the dense device banks exceed TPU.MAX_DEVICE_BANK_BYTES; the "
-                "RIR sub-banks and the host env path are not ported yet "
-                "(ROADMAP Queue 1 items 2 and 3)"
+                f"the device banks would take {dense / 2**30:.2f} GiB dense and "
+                f"{sub / 2**30:.2f} GiB sub-banked, over TPU.MAX_DEVICE_BANK_BYTES "
+                f"({budget / 2**30:.2f} GiB); the host env path is not ported yet "
+                "(ROADMAP Queue 1 item 3)"
             )
-        self._train_device()
+        logger.info("the dense device banks would take %.2f GiB; using the episode-keyed "
+                    "RIR sub-banks (%.2f GiB at least)", dense / 2**30, sub / 2**30)
+        self._train_device(rir_mode="sub")
 
-    def _train_device(self) -> None:
+    def _make_sub_bank(self, bundle, dev, order, device) -> RirSubBank:
+        """The RIR sub-bank of the sub route: TPU.SUB_BANK_ROWS slots, or
+        with 0, one window's need grown into the budget the fixed banks
+        leave (each resident row saves a later re-upload), at most one a
+        (scene, source) key."""
+        cfg, p = self.config, self.config.RL.PPO
+        max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
+        v_pad = int(dev.scene.positions.shape[1])
+        rows = int(cfg.TPU.SUB_BANK_ROWS) or None
+        if rows is None:
+            n_keys = _count_unique_keys(bundle)
+            min_cap = sub_bank_capacity(cfg.NUM_PROCESSES, int(cfg.NUM_SOUNDS_IN_MIX),
+                                        p.num_steps, max_ep_steps, n_keys)
+            spare = int(cfg.TPU.MAX_DEVICE_BANK_BYTES) - fixed_bank_bytes(bundle)
+            rows = max_capacity_for_budget(
+                spare, row_bytes(v_pad, bundle.audio_db.rir_length), min_cap, n_keys)
+        sub_bank = RirSubBank(
+            bundle.scenes, bundle.audio_db, dev.episodes.scene_idx.cpu().numpy(),
+            dev.episodes.sources.cpu().numpy(), order, max_ep_steps, p.num_steps,
+            v_pad=v_pad, capacity=rows, device=device,
+        )
+        logger.info("RIR sub-bank: %d rows x (4, %d, %d, 2) float32 = %.2f GiB slab",
+                    sub_bank.capacity, v_pad, bundle.audio_db.rir_length,
+                    sub_bank.capacity * sub_bank.row_bytes / 2**30)
+        return sub_bank
+
+    def _train_device(self, rir_mode: str = "dense") -> None:
         """The device training loop on the separate-programs route: per
         cycle, `num_updates_per_cycle` x (collect + policy update), then the
         cached separator refit. Per cycle it records, in
@@ -198,7 +249,12 @@ class PPOTrainer(BaseRLTrainer):
         and the mean |reward| of its steps. The phases are timed by marks
         on the device's timeline (CUDA events, read at the stats fetch, so
         the loop never waits for the device only to time it; the host clock
-        on the CPU, which finishes each op before it returns)."""
+        on the CPU, which finishes each op before it returns).
+
+        rir_mode "sub" replaces the dense RIR bank by the episode-keyed
+        slab (env/sub_bank.py), refreshed before each collect and
+        prefetched after each policy update (TPU.SUB_PREFETCH); its
+        counters go per cycle into ``self.sub_bank_log``."""
         cfg = self.config
         ppo_cfg = self._ppo_config()
         p = cfg.RL.PPO
@@ -206,6 +262,7 @@ class PPOTrainer(BaseRLTrainer):
         t_setup = time.perf_counter()
 
         on_cuda = device.type == "cuda"
+        self._rir_mode = rir_mode
 
         def mark():
             if not on_cuda:
@@ -225,17 +282,24 @@ class PPOTrainer(BaseRLTrainer):
         gt_norm = cfg.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM
         action_codes = tuple(int(Action[a]) for a in cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
 
-        # the RIR-rfft cache only when the dense and rfft banks both fit the gate
-        rfft_on = bool(cfg.TPU.PRECOMPUTE_RIR_RFFT)
+        # the RIR-rfft cache in dense mode only, when the dense and rfft
+        # banks both fit the gate
+        rfft_on = bool(cfg.TPU.PRECOMPUTE_RIR_RFFT) and rir_mode == "dense"
         if rfft_on and de.estimate_bank_bytes(bundle) + de.estimate_rir_rfft_bytes(bundle) > int(
             cfg.TPU.MAX_DEVICE_BANK_BYTES
         ):
             logger.info("PRECOMPUTE_RIR_RFFT: the rfft bank exceeds the gate; "
                         "computing RIR FFTs per step instead")
             rfft_on = False
-        dev = de.build_device_bundle(bundle, device, precompute_rir_rfft=rfft_on)
+        dev = de.build_device_bundle(bundle, device, precompute_rir_rfft=rfft_on,
+                                     rir_mode=rir_mode)
         order = de.make_order_table(n_envs, len(bundle.episodes), cfg.SEED)
         env_state = de.env_reset_all(dev.scene, dev.episodes, torch.as_tensor(order, device=device))
+        sub_bank = self._sub_bank = (
+            self._make_sub_bank(bundle, dev, order, device) if rir_mode == "sub" else None
+        )
+        prefetch = sub_bank is not None and bool(cfg.TPU.SUB_PREFETCH)
+        self.sub_bank_log = []  # per cycle: the sub-bank's counters over the cycle
 
         pol_sensors = ["mixed_bin_audio_mag", "target_class"]
         pol_sensors += [k for k, b in (("rgb", dev.rgb_bank), ("depth", dev.depth_bank))
@@ -316,7 +380,12 @@ class PPOTrainer(BaseRLTrainer):
                 idx = update_count + sub
                 lr_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
                 clip_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_clip_decay else 1.0
+                if sub_bank is not None:
+                    slab, table = sub_bank.rollout_inputs()
+                    dev = dataclasses.replace(dev, rir_sub_bank=slab, ep_src_row=table)
                 out = collect(dev, env_state, hidden, masks, prev_mem, generator)
+                if sub_bank is not None:
+                    sub_bank.advance(t_steps)
                 env_state, hidden, masks, prev_mem = (
                     out.env_state, out.hidden, out.masks, out.prev_mem_masked
                 )
@@ -326,12 +395,19 @@ class PPOTrainer(BaseRLTrainer):
                                         clip_scale, banks=pol_banks))
                 marks.append(mark())
                 stats_list.append(out.stats)
+                if prefetch:
+                    # the next window's rows, assembled while the device runs
+                    # this window's collect and update; their writes queue
+                    # behind those on the same stream
+                    sub_bank.prefetch()
             sep_lrs = [
                 linear_decay(update_count + i, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
                 for i in range(cycle)
             ]
             sep_losses = update_sep(state, sep_buf, generator, sep_lrs)
             marks.append(mark())
+            if sub_bank is not None:
+                self._log_sub_bank(sub_bank)
             update_count += cycle
             total_env_steps += cycle * t_steps * n_envs
             pending.append((total_env_steps, update_count, torch.stack(stats_list),
@@ -388,6 +464,19 @@ class PPOTrainer(BaseRLTrainer):
 
         tb.close()
         self._save(state, update_count, num_cycles)
+
+    def _log_sub_bank(self, sub_bank: RirSubBank) -> None:
+        """Append the sub-bank's counters since the last cycle to
+        ``self.sub_bank_log``."""
+        now = {
+            "rows_assembled": sub_bank.rows_assembled, "rows_uploaded": sub_bank.rows_uploaded,
+            "bytes_uploaded": sub_bank.bytes_uploaded,
+            "rollout_inputs_s": sub_bank.host_s["rollout_inputs"],
+            "prefetch_s": sub_bank.host_s["prefetch"],
+            "prefetch_busy_returns": sub_bank.prefetch_busy_returns,
+        }
+        before = {k: sum(c[k] for c in self.sub_bank_log) for k in now}
+        self.sub_bank_log.append({k: v - before[k] for k, v in now.items()})
 
     # ------------------------------------------------------------------
     def _write_tb_scalars(self, tb, windows, probs_win, pol_losses, sep_losses, lr_now, step):

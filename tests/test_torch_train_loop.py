@@ -243,17 +243,38 @@ def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
                           "4", "RL.PPO.time_thres_for_pol_switch", "2"])
     assert eval_counts == zero
     chip_smoke.parity_phase(torch, switch=True, devices=("cpu", "cpu"), n_envs=2, hid=HID)
+    # scale-train on a 2-scene fixture under a budget between its sub-bank
+    # and its dense banks, so that the gate chooses the sub-banks
+    from move2hear_tpu_torch.env.micro_scene import build_scale_fixture
+    from move2hear_tpu_torch.env.sub_bank import estimate_sub_bank_bytes
+
+    small = dict(num_scenes=2, rows=3, cols=4, episodes_per_scene=6, rir_length=400,
+                 with_frames=True)
+    fixture = build_scale_fixture(**small)
+    budget = (estimate_sub_bank_bytes(fixture, N, 2, T, MAX_STEPS)
+              + de.estimate_bank_bytes(fixture)) // 2
+    assert estimate_sub_bank_bytes(fixture, N, 2, T, MAX_STEPS) < budget < de.estimate_bank_bytes(fixture)
+    scale_counts = chip_smoke.scale_train_phase(
+        torch, kernels, "cpu", os.path.join(run_dir, "scale"), device="cpu",
+        opts=opts + ["TPU.MAX_DEVICE_BANK_BYTES", str(budget)], launches=zero, fixture=small)
+    assert scale_counts == zero
+    chip_smoke.scale_parity_phase(torch, os.path.join(run_dir, "scale_parity"), device="cpu",
+                                  opts=opts, fixture=small, t=MAX_STEPS, n=N, hid=HID)
     chip_smoke.train_parity_phase(torch, devices=("cpu", "cpu"), t=T, n=N, hid=HID)
     out = capsys.readouterr().out
     assert "cycle 1 (warm)" in out and "eval of ckpt.2.pth" in out and "[train-parity]" in out
     assert "[far-train] cycle 1 (warm)" in out and "far-train-path launches" in out
     assert "merged ckpt.2.pth (navigation)" in out and "[far-eval] run warm" in out
     assert "switch at step 2" in out and "[switch-parity]" in out
+    assert "[scale-train] cycle 1 (warm)" in out and "scale-train-path launches" in out
+    assert "bitwise equal to the rows assembled anew" in out
+    assert "mixture magnitudes bitwise equal" in out and "parameters bitwise equal" in out
+    assert "slab gathers bitwise equal to dense at every step" in out
     shutil.rmtree(run_dir)
 
 
 # The JAX package's TPU knobs the port does not honour: each is refused
-# (ROADMAP Queue 1 items 2, 4 and 5), never run as if unset.
+# (ROADMAP Queue 1 items 3, 4 and 5), never run as if unset.
 KNOBS_REFUSED_BY_EVAL = [
     ["TPU.COMPUTE_DTYPE", "bfloat16"],
     ["TPU.SEP_SLAB_DTYPE", "bfloat16"],
@@ -264,8 +285,10 @@ KNOBS_REFUSED_BY_EVAL = [
 
 
 @pytest.mark.parametrize("opts,env", [
-    (["TPU.RIR_MODE", "sub"], {}),
     (["TPU.RIR_MODE", "host"], {}),
+    (["TPU.DEVICE_ENV", "False"], {}),
+    # the dense banks and the sub-bank both over the budget: the host path
+    (["TPU.MAX_DEVICE_BANK_BYTES", "1000"], {}),
     (["TPU.COMPUTE_DTYPE", "bfloat16"], {}),
     ([], {"WORLD_SIZE": "2"}),
     *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL[1:]],
@@ -273,17 +296,36 @@ KNOBS_REFUSED_BY_EVAL = [
     (["TPU.PAIRWISE_FUSION", "True"], {}),
     (["TPU.COLLECT_UNROLL", "4"], {}),
     (["TPU.REPORT_MFU", "True"], {}),
-    (["TPU.SUB_BANK_ROWS", "64"], {}),
     (["RL.PPO.nav_reward_weight", "0.5", "RL.PPO.sep_reward_weight", "0.5"], {}),
 ])
 def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     cfg = get_config(EXP, _train_opts(4) + opts, str(tmp_path), "train")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item|reward"):
         PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8, rir_length=400),
                    device="cpu").train()
     assert not os.path.exists(cfg.CHECKPOINT_FOLDER)  # refused before any training
+
+
+@pytest.mark.parametrize("opts,rows", [
+    (["TPU.RIR_MODE", "sub"], None),
+    (["TPU.RIR_MODE", "sub", "TPU.SUB_BANK_ROWS", "64"], 64),
+], ids=["RIR_MODE_sub", "SUB_BANK_ROWS_64"])
+def test_train_runs_the_sub_bank_route(tmp_path, opts, rows):
+    """RIR_MODE sub, with SUB_BANK_ROWS slots or sized to the budget (here,
+    a slot per (scene, source) key), trains one cycle on the RIR sub-bank."""
+    bundle = build_micro_scene(rows=3, cols=3, num_episodes=8, rir_length=400)
+    cfg = get_config(EXP, _train_opts(2) + opts, str(tmp_path), "train")
+    trainer = PPOTrainer(cfg, bundle=bundle, device="cpu")
+    trainer.train()
+    sub = trainer._sub_bank
+    assert trainer._rir_mode == "sub" and len(trainer.cycle_log) == 1
+    keys = {(e.scene_id, s) for e in bundle.episodes.episodes for s in e.source_nodes}
+    assert sub.capacity == (rows or len(keys))
+    assert trainer.sub_bank_log[0]["rows_uploaded"] == sub.rows_uploaded > 0
+    pol, sep = trainer.loss_log[0]
+    assert np.isfinite(pol).all() and np.isfinite(sep).all()
 
 
 @pytest.mark.parametrize("opts", [
@@ -296,8 +338,7 @@ def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
 ], ids=lambda o: o[0].split(".")[1])
 def test_the_knobs_at_the_jax_packages_defaults_are_accepted(tmp_path, opts):
     """A config that sets a knob to the JAX package's default asks for what
-    the port runs, so it is not refused (SUB_PREFETCH matters only in the
-    sub mode, which is refused on its own)."""
+    the port runs, so it is not refused."""
     cfg = get_config(EXP, _train_opts(4) + opts, str(tmp_path), "train")
     refuse_unported_knobs(cfg.TPU)
     refuse_unported_knobs(cfg.TPU, training=False)
