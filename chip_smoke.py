@@ -69,6 +69,30 @@ Phases, each printing its own line(s) with its seconds:
      keeps the slab gather bitwise equal to the dense one through 5 windows
      of the trainer's micro-scene, and one training cycle's parameters agree
      within TRAIN_TOL (losses) and TRAIN_DP_TOL;
+ 8e. host-fixture: the reference's on-disk layout written into the run
+     directory (env/layout.py): 14 grid scenes of V = 12 (one per env),
+     graph.pkl naming networkx's Graph (written without networkx), 8,064
+     16,000-sample 16-bit RIR wavs, mono wavs, observation pickles and 8
+     episodes a scene of train_nearTarget, test_nearTarget and
+     test_farTarget; its bytes reckoned and printed; removed after 8h;
+ 8f. host-train: ``--run-type train`` with configs/train/nearTarget.yaml at
+     full width (phase 8's cycle) for 2 cycles from phase 6's separators on
+     the fixture, RIR_MODE auto with TPU.MAX_DEVICE_BANK_BYTES below both
+     bank estimates: the gate must choose the host env path, whose 14
+     ProcessVectorEnv workers fork after CUDA is set up. Set-up, per-cycle
+     seconds in the env step, the device step, the policy update and the
+     refit, warm env-steps/s, finite losses, RIR bytes shipped a step,
+     launch counters equal to HOST_TRAIN_LAUNCHES;
+ 8g. host-eval: ``--run-type eval`` with configs/test/nearTarget.yaml on
+     8f's checkpoint over the fixture, 8 episodes (below
+     DEVICE_EVAL_MIN_EPISODES: the host evaluator) with COMPUTE_EVAL_METRICS,
+     then a 2-episode switch eval with configs/test/farTarget.yaml on 8b's
+     merged checkpoint: env-steps/s, launch counters equal to
+     HOST_EVAL_LAUNCHES and HOST_SWITCH_EVAL_LAUNCHES;
+ 8h. host-parity: TF32 off, deterministic actions: the host evaluator
+     against the device evaluator on the 16 episodes of two fixture scenes,
+     per episode equal actions, per-step STFT-L2 within HOST_PARITY_L2_TOL
+     and SI-SDR within HOST_PARITY_SI_TOL above -40 dB;
   9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -145,6 +169,23 @@ SCALE_PARITY_FIXTURE = dict(num_scenes=2, rows=3, cols=4, episodes_per_scene=6,
 # far-eval: 16 envs x 100 steps x 4 batches (64 episodes); either policy of
 # the switch makes the eval's 2 masked_mix_slice16 and 1 overlap_add a step.
 FAR_EVAL_LAUNCHES = {"masked_mix_slice16": 800, "overlap_add": 400, "masked_mix_slice16_bwd": 0}
+# phases 8e-8h: the file-backed fixture, 14 scenes (one per env: the scene
+# split asserts at least as many scenes as envs) of V = 12, 8 episodes of
+# each split a scene, 16,000-sample RIRs
+HOST_FIXTURE = dict(num_scenes=14, rows=3, cols=4, episodes_per_scene=8, rir_length=16000,
+                    splits={"train_nearTarget": True, "test_nearTarget": True,
+                            "test_farTarget": False})
+# host-train: 2 cycles of 6 updates x 20 steps at 14 envs: the first
+# forward (2, B=14) + 240 env steps x 2 (the bin2mono encoder and the
+# policy's bin encoder, B=14) + 12 updates x 4 PPO epochs x 1 bin encoder
+# (B=280) + 2 cycles x 6 refits x 6 render chunks of 20 rows x 1 bin2mono
+# encoder (B=280) = 2 + 480 + 48 + 72 = 602; no ISTFT, no backward.
+HOST_TRAIN_LAUNCHES = {"masked_mix_slice16": 602, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# host-eval: 8 episodes x 20 steps x 2 (B=1); the SI-SDR's ISTFTs are numpy.
+HOST_EVAL_LAUNCHES = {"masked_mix_slice16": 320, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# host switch eval: 2 episodes x 100 steps x 2 (B=1), either policy.
+HOST_SWITCH_EVAL_LAUNCHES = {"masked_mix_slice16": 400, "overlap_add": 0,
+                             "masked_mix_slice16_bwd": 0}
 # pretrain: 3 epochs x (256 // 64 = 4 train steps + 1 val and 1
 # nonoverlapping-val batch of 64) = 18, one in the bin2mono encoder each;
 # its masks enter detached (the JAX package's stop_gradient), and the
@@ -166,6 +207,7 @@ MM_CASES = {
     "path": (16, 512, 32, 2, 0),
     "train": (280, 512, 32, 2, 0),
     "pretrain": (64, 512, 32, 2, 0),
+    "collect": (14, 512, 32, 2, 0),
     "B=1": (1, 512, 32, 2, 0),
     "C=1": (2, 512, 32, 1, 0),
     "C=3": (2, 64, 8, 3, 0),
@@ -382,6 +424,12 @@ def time_phase(torch, kernels, errs):
         ("masked_mix_slice16", "pretrain", kernels.masked_mix_slice16,
          kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["pretrain"]),
          mm_work(MM_CASES["pretrain"])),
+        ("masked_mix_slice16", "collect", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["collect"]),
+         mm_work(MM_CASES["collect"])),
+        ("masked_mix_slice16", "B=1", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["B=1"]),
+         mm_work(MM_CASES["B=1"])),
         ("masked_mix_slice16_bwd", "train", kernels.masked_mix_slice16_bwd,
          kernels.masked_mix_slice16_bwd_plain, mm_bwd_inputs(torch, MM_CASES["train"]),
          mm_bwd_work(MM_CASES["train"])),
@@ -1023,6 +1071,218 @@ def far_eval_phase(torch, kernels, card, run_dir, nav_ckpt, qi_ckpt, device="cud
     return counts
 
 
+HOST_TRAIN_EXP = TRAIN_EXP
+HOST_EVAL_EXP = os.path.join(REPO, "configs", "test", "nearTarget.yaml")
+# phase 8f's budget: below both bank estimates of the fixture (1.04 GB
+# dense, 0.17 GB sub-banked), so that the gate itself takes the host path
+HOST_TRAIN_OPTS = ["TPU.MAX_DEVICE_BANK_BYTES", "1000000"]
+
+
+def host_fixture_phase(root, fixture=HOST_FIXTURE):
+    """Phase 8e: the reference's on-disk layout of `fixture` under `root`
+    (``env/layout.py``): graphs, RIR wavs, mono wavs, the episode json.gz
+    of each split and the per-scene observation pickles. Returns the config
+    overrides that point at it."""
+    from move2hear_tpu_torch.env.layout import write_soundspaces_layout
+
+    t0 = time.perf_counter()
+    lay = write_soundspaces_layout(root, **fixture)
+    total = sum(lay["bytes"].values())
+    n, v = fixture["num_scenes"], fixture["rows"] * fixture["cols"]
+    reckoned = n * 4 * v * v * (fixture["rir_length"] * 2 * 2 + 44)
+    if lay["bytes"]["rirs"] != reckoned:
+        fail(f"host-fixture: {lay['bytes']['rirs']} RIR bytes written, reckoned {reckoned}")
+    phase("host-fixture", t0, (
+        f"{lay['files']} files, {total / 1e9:.3f} GB under {root}: {n} scenes of V = {v}, "
+        f"{n * 4 * v * v} RIR wavs of {fixture['rir_length']} 16-bit stereo samples "
+        f"({lay['bytes']['rirs'] / 1e9:.3f} GB, reckoned {reckoned / 1e9:.3f} GB), frames "
+        f"{lay['bytes']['frames'] / 1e6:.1f} MB, mono {lay['bytes']['mono'] / 1e6:.2f} MB, "
+        f"episodes of {sorted(fixture['splits'])}, {fixture['episodes_per_scene']} a scene"
+    ))
+    return lay["opts"]
+
+
+def host_train_phase(torch, kernels, card, run_dir, fixture_opts, device="cuda", opts=(),
+                     launches=HOST_TRAIN_LAUNCHES, pretrained="", cycles=2):
+    """Phase 8f: the train CLI with configs/train/nearTarget.yaml at full
+    width on the file-backed fixture, RIR_MODE auto with a budget below both
+    bank estimates, in worker processes forked after CUDA is set up, with
+    the launch counters set to 0 just before it and read just after.
+    Returns the path's launch counts and its last checkpoint."""
+    import numpy as np
+
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.bundle import bundle_from_config
+    from move2hear_tpu_torch.env.sub_bank import estimate_sub_bank_bytes
+    from move2hear_tpu_torch.main import main as port_main
+
+    argv = [*TRAIN_OPTS, "RL.PPO.pretrained_passive_separators_ckpt", pretrained,
+            *HOST_TRAIN_OPTS, *fixture_opts, *opts]
+    cfg = get_config(HOST_TRAIN_EXP, argv, run_dir, "train")
+    bundle = bundle_from_config(cfg.TASK_CONFIG, max_rir_length=cfg.TPU.MAX_RIR_LENGTH)
+    p = cfg.RL.PPO
+    dense = de.estimate_bank_bytes(bundle)
+    sub = estimate_sub_bank_bytes(bundle, cfg.NUM_PROCESSES, cfg.NUM_SOUNDS_IN_MIX, p.num_steps,
+                                  cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS)
+    budget = int(cfg.TPU.MAX_DEVICE_BANK_BYTES)
+    if not (dense > budget and sub > budget):
+        fail(f"host-train: budget {budget} B is not below both estimates ({dense}, {sub} B)")
+    del bundle
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    trainer = port_main(["--run-type", "train", "--exp-config", HOST_TRAIN_EXP, "--model-dir",
+                         run_dir, "--device", device, *argv])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    if trainer._rir_mode != "host":
+        fail(f"host-train: the gate chose {trainer._rir_mode!r}, not the host env path")
+    if counts != launches:
+        fail(f"host-train-path kernel launches {counts}, expected {launches}")
+    if trainer.vector_env != "ProcessVectorEnv":
+        fail(f"host-train stepped its envs in {trainer.vector_env}, not ProcessVectorEnv")
+    log = trainer.cycle_log
+    if len(log) != cycles:
+        fail(f"host-train ran {len(log)} cycles, expected {cycles}")
+    print(f"host-train: gate host (dense {dense / 1e9:.3f} GB, sub-banked {sub / 1e9:.3f} GB, "
+          f"budget {budget / 1e9:.6f} GB); {cfg.NUM_PROCESSES} ProcessVectorEnv workers forked "
+          f"after CUDA set-up; RIR bytes shipped a step {trainer.rir_bytes_per_step} "
+          f"({trainer.rir_bytes_per_step / 1e6:.3f} MB)", flush=True)
+    for i, c in enumerate(log):
+        phase("host-train", t0, (
+            f"cycle {i} ({'cold' if i == 0 else 'warm'}): {c['env_steps']} env-steps in "
+            f"{c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; env step "
+            f"{c['env']:.3f} s, device step {c['device_step']:.3f} s, policy update "
+            f"{c['update']:.3f} s, refit {c['refit']:.3f} s; mean |reward| "
+            f"{c['reward_abs_mean']:.6f} ({card})"
+        ))
+    for i, (pol, sep) in enumerate(trainer.loss_log):
+        if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
+            fail(f"host-train cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
+        print(f"host-train cycle {i} losses, last update: value {pol[-1][0]:.6f} action "
+              f"{pol[-1][1]:.6f} entropy {pol[-1][2]:.6f}; refit bin {sep[-1][0]:.6f} "
+              f"mono {sep[-1][1]:.6f} mem {sep[-1][2]:.6f}", flush=True)
+    warm = log[-1]
+    print(f"host-train: set-up {trainer.setup_s:.3f} s, warm {warm['env_steps'] / warm['total']:.1f} "
+          f"env-steps/s, end to end {sum(c['env_steps'] for c in log) / wall:.1f} env-steps/s over "
+          f"{wall:.3f} s; host-train-path launches: {counts}", flush=True)
+    ckpt = os.path.join(cfg.CHECKPOINT_FOLDER, f"ckpt.{cycles}.pth")
+    if not os.path.exists(ckpt):
+        fail(f"host-train wrote {sorted(os.listdir(cfg.CHECKPOINT_FOLDER))}, not {ckpt}")
+    return counts, ckpt
+
+
+def host_eval_phase(torch, kernels, card, run_dir, fixture_opts, ckpt, switch_ckpt,
+                    device="cuda", opts=(), episodes=8, switch_episodes=2,
+                    launches=HOST_EVAL_LAUNCHES, switch_launches=HOST_SWITCH_EVAL_LAUNCHES):
+    """Phase 8g: the eval CLI routed to the host evaluator (fewer episodes
+    than TPU.DEVICE_EVAL_MIN_EPISODES) over the fixture: near-target on
+    8f's checkpoint with COMPUTE_EVAL_METRICS, then the switch policy on
+    8b's merged checkpoint; each with the launch counters set to 0 just
+    before it and read just after. Returns both runs' launch counts."""
+    from move2hear_tpu_torch.main import main as port_main
+
+    out = []
+    for label, exp, path, n, want in (
+        ("host-eval", HOST_EVAL_EXP, ckpt, episodes, launches),
+        ("host-switch-eval", FAR_EVAL_EXP, switch_ckpt, switch_episodes, switch_launches),
+    ):
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        ev = port_main(["--run-type", "eval", "--exp-config", exp, "--model-dir",
+                        os.path.join(run_dir, label), "--device", device, "EVAL_CKPT_PATH_DIR",
+                        path, "EVAL_EPISODE_COUNT", str(n), *fixture_opts, *opts])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        agg, tm = ev.last_eval
+        if ev._eval_route != "host":
+            fail(f"{label}: routed to the {ev._eval_route} evaluator, not the host one")
+        if counts != want:
+            fail(f"{label}-path kernel launches {counts}, expected {want}")
+        keys = ["mono_l2_last", "mem_l2_last", "bin_l2_all", "geo_distance_to_target_audio_source"]
+        for k in keys:
+            if k not in agg or not all(math.isfinite(v) for v in agg[k].values()):
+                fail(f"{label}: aggregate {k} missing or not finite: {agg.get(k)}")
+        if tm["episodes"] != n:
+            fail(f"{label}: {tm['episodes']} episodes, expected {n}")
+        phase(label, t0, (
+            f"{tm['episodes']} episodes x {tm['env_steps'] // n} steps on the file-backed fixture: "
+            f"{tm['env_steps'] / tm['loop_s']:.1f} env-steps/s over the episode loop "
+            f"({tm['loop_s']:.3f} s), set-up {tm['setup_s']:.3f} s, end to end "
+            f"{tm['env_steps'] / wall:.1f} env-steps/s; " + ", ".join(
+                f"{k} {agg[k]['mean']:.6f}" for k in keys) + f"; {label}-path launches: "
+            f"{counts} ({card})"
+        ))
+        out.append(counts)
+    return out
+
+
+HOST_PARITY_L2_TOL = 1e-4   # relative, per-step STFT-L2 (the CPU reads 1.1e-7)
+HOST_PARITY_SI_TOL = 0.05   # dB, per-step SI-SDR above -40 dB (the CPU reads 1.0e-5)
+
+
+def host_parity_phase(torch, run_dir, fixture_opts, ckpt, device="cuda", opts=(), scenes=2):
+    """Phase 8h: with TF32 off and deterministic actions, the host evaluator
+    against the device evaluator on the same fixture episodes (the first
+    `scenes` scenes, every episode): per episode, keyed by (scene, episode
+    id), equal actions, per-step STFT-L2 within HOST_PARITY_L2_TOL relative
+    and SI-SDR within HOST_PARITY_SI_TOL dB above -40 dB."""
+    import pickle
+
+    import numpy as np
+
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.bundle import bundle_from_config
+    from move2hear_tpu_torch.eval.device_evaluator import evaluate_checkpoint_device
+    from move2hear_tpu_torch.eval.evaluator import evaluate_checkpoint
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(HOST_EVAL_EXP, ["RL.PPO.deterministic_eval", "True", *fixture_opts, *opts],
+                     run_dir, "eval")
+    full = bundle_from_config(cfg.TASK_CONFIG, max_rir_length=cfg.TPU.MAX_RIR_LENGTH)
+    bundle = full.for_scenes(sorted(full.scenes)[:scenes])
+    n = len(bundle.episodes)
+    dumps, actions = [], []
+    for i, evaluate in enumerate((evaluate_checkpoint, evaluate_checkpoint_device)):
+        acts = {}
+        evaluate(cfg, ckpt, i, bundle=bundle, episode_count=n, device=device, actions_out=acts)
+        with open(os.path.join(run_dir, f"eval_metrics_ckpt_{i}.pkl"), "rb") as f:
+            dumps.append(pickle.load(f))
+        actions.append(acts)
+    host, dev = dumps
+    if sorted(actions[0]) != sorted(actions[1]) or len(actions[0]) != n:
+        fail(f"host-parity: episodes differ: {sorted(actions[0])} vs {sorted(actions[1])}")
+    rel, si = 0.0, []
+    for key, acts in actions[0].items():
+        if acts != actions[1][key]:
+            fail(f"host-parity: episode {key}: actions {acts} on the host, {actions[1][key]} on the "
+                 "device")
+        for m in ("mono_l2", "mem_l2", "bin_l2"):
+            h, d = np.asarray(host[str(key)][m]), np.asarray(dev[str(key)][m])
+            rel = max(rel, float(np.max(np.abs(h - d) / np.abs(d))))
+        for qh, qd in zip(host[str(key)]["quality"], dev[str(key)]["quality"]):
+            si += [(qh[r]["si_sdr"], qd[r]["si_sdr"]) for r in ("mono", "monoFromMem")]
+    si = np.asarray(si)
+    ok = si[:, 1] > -40.0  # below -40 dB the metric is ill-conditioned
+    si_err = float(np.max(np.abs(si[ok, 0] - si[ok, 1]))) if ok.any() else 0.0
+    if not rel <= HOST_PARITY_L2_TOL:
+        fail(f"host-parity: per-step STFT-L2 relative error {rel} > {HOST_PARITY_L2_TOL}")
+    if not si_err <= HOST_PARITY_SI_TOL:
+        fail(f"host-parity: SI-SDR differs by {si_err} dB > {HOST_PARITY_SI_TOL} dB")
+    phase("host-parity", t0, (
+        f"host evaluator vs device evaluator over {n} episodes of {scenes} fixture scenes: actions "
+        f"equal; per-step STFT-L2 max rel err {rel:.3e} (tol {HOST_PARITY_L2_TOL}); SI-SDR max abs "
+        f"diff {si_err:.4f} dB over {int(ok.sum())} entries above -40 dB (tol {HOST_PARITY_SI_TOL})"
+    ))
+
+
 def synthetic_rollout(seed, t, n, hidden, num_actions, n_poses=None, frames=False):
     """A PPO rollout in the layout make_update_pol reads (the JAX package's
     and the port's), as numpy arrays from `seed`: (T+1)-slot observations
@@ -1474,6 +1734,24 @@ def parity_phase(torch, switch=False, devices=("cuda", "cpu"), n_envs=8, hid=512
     ))
 
 
+def host_phases(torch, kernels, card, run_dir, pretrained, switch_ckpt):
+    """Phases 8e-8h in the run directory; the fixture is removed after them.
+    Returns the host paths' launch counts by path."""
+    layout = os.path.join(run_dir, "layout")
+    try:
+        fixture_opts = host_fixture_phase(layout)
+        train_counts, ckpt = host_train_phase(torch, kernels, card, os.path.join(run_dir, "host"),
+                                              fixture_opts, pretrained=pretrained)
+        eval_counts, switch_counts = host_eval_phase(
+            torch, kernels, card, os.path.join(run_dir, "host_eval"), fixture_opts, ckpt,
+            switch_ckpt)
+        host_parity_phase(torch, os.path.join(run_dir, "host_parity"), fixture_opts, ckpt)
+    finally:
+        shutil.rmtree(layout, ignore_errors=True)
+    return {"host_train": train_counts, "host_eval": eval_counts,
+            "host_switch_eval": switch_counts}
+
+
 def main():
     import torch
 
@@ -1538,6 +1816,8 @@ def main():
         scale_launches = scale_train_phase(torch, kernels, card, os.path.join(run_dir, "scale"),
                                            pretrained=pretrained)
         scale_parity_phase(torch, os.path.join(run_dir, "scale_parity"))
+        host_launches = host_phases(torch, kernels, card, run_dir, pretrained,
+                                    os.path.join(run_dir, "switch.pth"))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)
@@ -1545,7 +1825,7 @@ def main():
 
     by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
                "pretrain_eval": pre_eval_launches, "far_train": far_train_launches,
-               "far_eval": far_eval_launches, "scale_train": scale_launches}
+               "far_eval": far_eval_launches, "scale_train": scale_launches, **host_launches}
     for name, row in rows.items():
         # the launches of every path's runs
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}

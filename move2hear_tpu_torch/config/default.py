@@ -113,13 +113,13 @@ def default_config() -> Config:
     c.TPU.DEVICE_ENV = True          # evaluate on the batched device env
     c.TPU.DEVICE_EVAL_MIN_EPISODES = 64  # route eval to the batched device
     # evaluator at/above this episode count; below it the host evaluator
-    # would run, which is not ported yet
+    # (eval/evaluator.py) runs
     c.TPU.MAX_RIR_LENGTH = 16000     # static pad length for RIR tensors
     c.TPU.PRECOMPUTE_RIR_RFFT = True  # cache rffts of the whole RIR bank,
     # removing the per-step RIR forward FFTs
     c.TPU.MAX_DEVICE_BANK_BYTES = 40 * 1024**3  # device-env gate: the dense
     # banks when they fit it, else the RIR sub-banks when they fit it, else
-    # the host path (not ported yet). Half of an H100's 80 GB: the other
+    # the host env path. Half of an H100's 80 GB: the other
     # half holds the model, Adam state, activations and the cuDNN and cuFFT
     # workspaces (the JAX package's 8 GiB is half of a 16 GiB TPU v5e)
     c.TPU.SUB_BANK_ROWS = 0  # slots of the RIR sub-bank (env/sub_bank.py);
@@ -128,8 +128,8 @@ def default_config() -> Config:
     c.TPU.SUB_BANK_DTYPE = "float32"  # slab storage; bfloat16 is not ported yet
     c.TPU.SUB_PREFETCH = True  # assemble and upload the next window's rows
     # after each policy update is queued, while the device runs it
-    c.TPU.RIR_MODE = "auto"  # dense or sub forces that route, skipping the
-    # MAX_DEVICE_BANK_BYTES gate; host is not ported yet
+    c.TPU.RIR_MODE = "auto"  # dense, sub or host forces that route, skipping
+    # the MAX_DEVICE_BANK_BYTES gate
     c.TPU.STATS_FETCH_INTERVAL = 2  # the trainer fetches the packed logging
     # stats to the host every N cycles
 

@@ -1,9 +1,12 @@
-"""Procedural audio asset store: mono source waveforms and binaural RIRs,
-each mono sound with a stable integer id so a (num_sounds, L) device array
-can be indexed by the env."""
+"""Audio asset stores: mono source waveforms and binaural RIRs, each mono
+sound with a stable integer id so a (num_sounds, L) device array can be
+indexed by the env. ``SyntheticAudioDB`` makes them from a seed;
+``FileAudioDB`` reads the reference's on-disk layout. An unreadable or
+empty RIR file reads as zeros (simulator_train.py:407-415)."""
 
+import os
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +46,9 @@ class SyntheticAudioDB:
 
     def sound_id(self, name):
         return self._ids[name]
+
+    def get_mono(self, name):
+        return self._bank[self._ids[name]]
 
     def mono_bank(self):
         """(num_sounds, L) raw int16-scale float32 array, by sound_id."""
@@ -89,3 +95,92 @@ class SyntheticAudioDB:
                 np.float32
             )
         return rir
+
+
+class FileAudioDB:
+    """The reference's on-disk layout: mono wavs at ``mono_dir/{name}.wav``
+    (sound ids in sorted name order), RIR wavs at
+    ``rir_dir/{scene}/{azimuth}/{receiver}_{source}.wav``
+    (simulator_train.py:396-415), zero-padded or cut to ``rir_length``."""
+
+    def __init__(
+        self,
+        mono_dir: str,
+        rir_dir: str,
+        wav_length: int = 16000,
+        rir_length: int = 16000,
+        rir_sampling_rate: int = 16000,
+    ):
+        from scipy.io import wavfile
+
+        self._wavfile = wavfile
+        self.wav_length = wav_length
+        self.rir_length = rir_length
+        self._rir_sampling_rate = rir_sampling_rate
+        self._mono_dir = mono_dir
+        self._rir_dir = rir_dir
+        self._names = sorted(
+            os.path.splitext(f)[0] for f in os.listdir(mono_dir) if f.endswith(".wav")
+        )
+        self._ids = {n: i for i, n in enumerate(self._names)}
+        self._mono_cache: Dict[str, np.ndarray] = {}
+        self._rir_cache: Dict[Tuple, np.ndarray] = {}
+        self._bank: Optional[np.ndarray] = None
+
+    def sound_names(self):
+        return list(self._names)
+
+    def sound_id(self, name):
+        return self._ids[name]
+
+    def get_mono(self, name):
+        if name not in self._mono_cache:
+            _, data = self._wavfile.read(os.path.join(self._mono_dir, name + ".wav"))
+            data = np.asarray(data, np.float32)[: self.wav_length]
+            if len(data) < self.wav_length:
+                data = np.pad(data, (0, self.wav_length - len(data)))
+            self._mono_cache[name] = data
+        return self._mono_cache[name]
+
+    def mono_bank(self):
+        """(num_sounds, L) raw int16-scale float32 array, by sound_id."""
+        if self._bank is None:
+            self._bank = np.stack([self.get_mono(n) for n in self._names])
+        return self._bank
+
+    def get_rir(self, scene, azimuth, receiver, source):
+        """(R, 2) float32, read once and cached."""
+        key = (scene, int(azimuth), int(receiver), int(source))
+        if key not in self._rir_cache:
+            self._rir_cache[key] = self._read_rir(key)
+        return self._rir_cache[key]
+
+    def _read_rir(self, key):
+        scene, azimuth, receiver, source = key
+        path = os.path.join(
+            self._rir_dir, scene, str(int(azimuth)), f"{int(receiver)}_{int(source)}.wav"
+        )
+        try:
+            sr, rir = self._wavfile.read(path)
+            assert sr == self._rir_sampling_rate
+            rir = np.asarray(rir, np.float32)
+            if rir.ndim == 1:
+                rir = np.stack([rir, rir], axis=-1)
+        except (ValueError, FileNotFoundError, AssertionError):
+            rir = np.zeros((self.rir_length, 2), np.float32)
+        if len(rir) == 0:
+            rir = np.zeros((self.rir_length, 2), np.float32)
+        out = np.zeros((self.rir_length, 2), np.float32)
+        n = min(len(rir), self.rir_length)
+        out[:n] = rir[:n]
+        return out
+
+    def get_rir_block(self, scene, azimuth, source, num_receivers):
+        """(num_receivers, R, 2) all-receiver column, read past the cache
+        (see SyntheticAudioDB.get_rir_block)."""
+        out = np.empty((num_receivers, self.rir_length, 2), np.float32)
+        for recv in range(num_receivers):
+            key = (scene, int(azimuth), int(recv), int(source))
+            cached = self._rir_cache.get(key)
+            out[recv] = cached if cached is not None else self._read_rir(key)
+        return out

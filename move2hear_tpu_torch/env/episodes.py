@@ -1,9 +1,14 @@
 """Episode specifications and datasets (``habitat_audio/dataset.py``): an
 episode fixes the scene, start node and rotation, per-source (node, sound
-name), target class and the start->target geodesic; ``generate_episodes``
-draws them for fixture scenes."""
+name), target class and the start->target geodesic. ``EpisodeDataset.
+from_json_gz`` reads the reference's gz-json layout ({data_path}, and
+{dirname(data_path)}/content/{scene}.json.gz, each an {'episodes': [...]}
+dict); ``generate_episodes`` draws them for fixture scenes."""
 
-from dataclasses import dataclass
+import gzip
+import json
+import os
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +37,7 @@ class Episode:
     target_class: int
     geodesic_distance: float = 0.0      # start -> target source
     all_geodesic_distances: Optional[List[float]] = None
+    info: Dict = field(default_factory=dict)
 
 
 class EpisodeDataset:
@@ -40,6 +46,59 @@ class EpisodeDataset:
 
     def __len__(self):
         return len(self.episodes)
+
+    def scene_ids(self) -> List[str]:
+        """The scenes of the episodes, in order of first appearance."""
+        return list(dict.fromkeys(e.scene_id for e in self.episodes))
+
+    def split_for_rank(self, rank: int, world: int) -> "EpisodeDataset":
+        return EpisodeDataset(self.episodes[rank::world])
+
+    @staticmethod
+    def get_scenes_to_load(data_path: str) -> List[str]:
+        """The per-scene episode files of the content dir (dataset.py:56-95)."""
+        content_dir = os.path.join(os.path.dirname(data_path), "content")
+        if not os.path.isdir(content_dir):
+            return []
+        return sorted(
+            f[: -len(".json.gz")] for f in os.listdir(content_dir) if f.endswith(".json.gz")
+        )
+
+    @classmethod
+    def from_json_gz(cls, data_path: str, scenes: Optional[Sequence[str]] = None):
+        """The reference's gz-json episodes (dataset.py:97-131): the file at
+        `data_path` if there is one, then each scene's file of the content
+        dir (`scenes`, or all of them)."""
+        episodes: List[Episode] = []
+
+        def load_file(path):
+            with gzip.open(path, "rt") as f:
+                payload = json.load(f)
+            for ep in payload.get("episodes", []):
+                infos = ep.get("info", [])
+                episodes.append(Episode(
+                    episode_id=str(ep["episode_id"]),
+                    scene_id=os.path.splitext(os.path.basename(ep["scene_id"]))[0],
+                    start_node=int(ep.get("start_node", ep.get("start_position_index", 0))),
+                    start_rotation=int(ep.get("start_rotation_angle", 0)),
+                    source_nodes=[int(g.get("node", g.get("position_index", 0)))
+                                  for g in ep.get("goals", [])],
+                    sound_names=[i.get("sound") for i in infos],
+                    target_class=int(infos[0]["target_label"]) if infos else 0,
+                    geodesic_distance=(float(infos[0].get("geodesic_distance", 0.0))
+                                       if infos else 0.0),
+                    info={"raw": ep},
+                ))
+
+        if os.path.isfile(data_path):
+            load_file(data_path)
+        content_dir = os.path.join(os.path.dirname(data_path), "content")
+        if os.path.isdir(content_dir):
+            for scene in scenes or cls.get_scenes_to_load(data_path):
+                p = os.path.join(content_dir, scene + ".json.gz")
+                if os.path.exists(p):
+                    load_file(p)
+        return cls(episodes)
 
     def filter_by_scenes(self, scenes: Sequence[str]) -> "EpisodeDataset":
         return EpisodeDataset([e for e in self.episodes if e.scene_id in scenes])

@@ -1,6 +1,10 @@
-"""Procedural pre-rendered RGB/depth observations: maps (scene, node,
-rotation) -> {rgb (H, W, 3) uint8, depth (H, W, 1) float32}."""
+"""Pre-rendered RGB/depth observations: maps (scene, node, rotation) ->
+{rgb (H, W, 3) uint8, depth (H, W, 1) float32}, drawn procedurally
+(``SyntheticFrameCache``) or read from the reference's per-scene pickles
+(``FileFrameCache``, simulator_train.py:89-95)."""
 
+import os
+import pickle
 import zlib
 from typing import Dict, Tuple
 
@@ -32,3 +36,31 @@ class SyntheticFrameCache:
             depth = np.clip(base, 0, 1)[..., None].astype(np.float32)
             self._cache[key] = {"rgb": rgb, "depth": depth}
         return self._cache[key]
+
+
+class FileFrameCache:
+    """Per-scene pickle files ``{root}/{scene_dataset}/{scene}.pkl`` holding
+    {(node, rotation): {'rgb': ..., 'depth': ...}}, loaded on first use and
+    kept. A 2-D depth gets a channel axis; rgb keeps 3 channels."""
+
+    def __init__(self, root: str, scene_dataset: str = "mp3d"):
+        self._root = root
+        self._scene_dataset = scene_dataset
+        self._scenes: Dict[str, Dict] = {}
+
+    def _load(self, scene: str):
+        if scene not in self._scenes:
+            path = os.path.join(self._root, self._scene_dataset, scene + ".pkl")
+            with open(path, "rb") as f:
+                self._scenes[scene] = pickle.load(f)
+        return self._scenes[scene]
+
+    def get(self, scene, node, rotation):
+        obs = self._load(scene)[(int(node), int(rotation) % 360)]
+        out = {}
+        if "rgb" in obs:
+            out["rgb"] = np.asarray(obs["rgb"])[..., :3]
+        if "depth" in obs:
+            d = np.asarray(obs["depth"])
+            out["depth"] = d if d.ndim == 3 else d[..., None]
+        return out

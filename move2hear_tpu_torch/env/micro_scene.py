@@ -1,21 +1,27 @@
-"""Synthetic micro-scene: a small grid scene + procedural audio DB + frame
-cache + generated episodes, the data source of the device evaluator when
-no file-backed Matterport3D/SoundSpaces data is configured."""
+"""Scene bundles, and the synthetic micro-scene: a small grid scene +
+procedural audio DB + frame cache + generated episodes, the data source of
+the trainers and evaluators when no file-backed Matterport3D/SoundSpaces
+data is configured (file-backed bundles: env/bundle.py)."""
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 from move2hear_tpu_torch.env.audio_db import SyntheticAudioDB
+from move2hear_tpu_torch.env.environment import AAViSSEnv
 from move2hear_tpu_torch.env.episodes import EpisodeDataset, generate_episodes
 from move2hear_tpu_torch.env.frame_cache import SyntheticFrameCache
 from move2hear_tpu_torch.env.scene import GraphScene
+from move2hear_tpu_torch.env.sim import AAViSSSim
 
 DEFAULT_SOUNDS = [f"class{i}" for i in range(10)] + ["music", "esc"]
 
 
 @dataclass
 class MicroSceneBundle:
-    """Scene graph(s) + audio DB + frame cache + episodes."""
+    """Scene graph(s) + audio DB + frame cache + episodes: the generic
+    bundle, synthetic or file-backed (``env/bundle.py:bundle_from_config``,
+    whose ``FileAudioDB`` also serves the device paths' RIR banks and
+    sub-bank rows)."""
 
     scene: Union[GraphScene, Dict[str, GraphScene]]
     audio_db: SyntheticAudioDB
@@ -27,6 +33,52 @@ class MicroSceneBundle:
         if isinstance(self.scene, GraphScene):
             return {self.scene.name: self.scene}
         return self.scene
+
+    @property
+    def single_scene(self) -> GraphScene:
+        scenes = self.scenes
+        assert len(scenes) == 1, f"bundle holds {len(scenes)} scenes; this code path is single-scene"
+        return next(iter(scenes.values()))
+
+    def for_scenes(self, names) -> "MicroSceneBundle":
+        """The sub-bundle of the named scenes: their episodes, the same audio
+        DB and frame cache."""
+        return MicroSceneBundle(
+            scene={n: self.scenes[n] for n in names},
+            audio_db=self.audio_db,
+            frame_cache=self.frame_cache,
+            episodes=self.episodes.filter_by_scenes(list(names)),
+        )
+
+    def make_env_fn(
+        self,
+        max_episode_steps: int = 20,
+        with_distance_reward: bool = False,
+        distance_reward_scale: float = 1.0,
+        eval_mode: bool = False,
+        gt_mono_mag_norm: float = 1.2,
+        seed: int = 0,
+        shuffle_episodes: bool = True,
+        episodes: Optional[EpisodeDataset] = None,
+        possible_actions=("MOVE_FORWARD", "TURN_LEFT", "TURN_RIGHT"),
+    ) -> Callable[[], AAViSSEnv]:
+        """A function that builds one host env over this bundle (all its
+        episodes, or `episodes`)."""
+        bundle = self
+
+        def make():
+            sim = AAViSSSim(bundle.scene, bundle.audio_db, bundle.frame_cache,
+                            eval_mode=eval_mode, gt_mono_mag_norm=gt_mono_mag_norm)
+            return AAViSSEnv(
+                sim, episodes if episodes is not None else bundle.episodes,
+                max_episode_steps=max_episode_steps,
+                with_distance_reward=with_distance_reward,
+                distance_reward_scale=distance_reward_scale,
+                seed=seed, shuffle_episodes=shuffle_episodes,
+                possible_actions=possible_actions,
+            )
+
+        return make
 
 
 def build_micro_scene(

@@ -257,6 +257,70 @@ def _policy(cfg, state_dict, num_actions: int, device) -> Move2HearPolicy:
     return policy.to(device).eval()
 
 
+def eval_policies(cfg, ckpt: dict, num_actions: int, device):
+    """(navigation policy, quality-improvement policy) of a loaded
+    checkpoint: the two policies of a switch checkpoint under
+    RL.PPO.switch_policy, else its one policy twice."""
+    if not cfg.RL.PPO.switch_policy:
+        policy = _policy(cfg, ckpt["state_dict"], num_actions, device)
+        return policy, policy
+    if "state_dict_nav" not in ckpt or "state_dict_qualImprov" not in ckpt:
+        raise KeyError(
+            f"RL.PPO.switch_policy needs a switch checkpoint, not one holding "
+            f"{sorted(ckpt)}: merge one with scripts/torch_merge_switch_ckpt.py "
+            "NAV_CKPT QUALIMPROV_CKPT OUT_CKPT"
+        )
+    return (_policy(cfg, ckpt["state_dict_nav"], num_actions, device),
+            _policy(cfg, ckpt["state_dict_qualImprov"], num_actions, device))
+
+
+def default_eval_bundle(cfg):
+    """The synthetic micro-scene an evaluation runs on when no bundle is
+    given: near-target or far-target episodes as the config trains, the
+    disjoint procedural sound pool for the unheard splits."""
+    p = cfg.RL.PPO
+    return build_micro_scene(
+        rows=4, cols=4, num_episodes=64,
+        near_target=not p.switch_policy and p.sep_reward_weight == 1.0,
+        rir_length=cfg.TPU.MAX_RIR_LENGTH,
+        unheard_sounds="unheard" in cfg.TASK_CONFIG.DATASET.SPLIT.lower(),
+    )
+
+
+def eval_episodes_of(cfg, bundle):
+    """The bundle's episodes under the eval filters EPS_SCENES and
+    EPS_SCENES_N_IDS (env_utils.py:683-685, dataset.py:134-160)."""
+    episodes = bundle.episodes
+    if cfg.EPS_SCENES:
+        episodes = episodes.filter_by_scenes(cfg.EPS_SCENES)
+    if cfg.EPS_SCENES_N_IDS:
+        episodes = episodes.filter_by_scenes_n_ids(dict(cfg.EPS_SCENES_N_IDS))
+    return episodes
+
+
+def write_eval_outputs(cfg, checkpoint_index: int, stats_episodes: dict,
+                       eval_metrics_dump: dict) -> Dict:
+    """The aggregates (mean and std of each scalar per-episode measure) of an
+    evaluation, written as ``{split}_stats_ckpt_{i}_{seed}.json`` with the
+    per-episode, per-step metrics as ``eval_metrics_ckpt_{i}.pkl`` under
+    MODEL_DIR (ppo_trainer.py:1484-1518). Returns the aggregates."""
+    agg = {}
+    for k in next(iter(stats_episodes.values())):
+        vals = [v[k] for v in stats_episodes.values() if np.isscalar(v[k])]
+        if vals:
+            agg[k] = {"mean": float(np.mean(vals)), "std": float(np.std(vals))}
+    out_dir = cfg.MODEL_DIR or "."
+    os.makedirs(out_dir, exist_ok=True)
+    stats_path = os.path.join(
+        out_dir, f"{cfg.EVAL.SPLIT}_stats_ckpt_{checkpoint_index}_{cfg.SEED}.json"
+    )
+    with open(stats_path, "w") as f:
+        json.dump(agg, f, indent=2)
+    with open(os.path.join(out_dir, f"eval_metrics_ckpt_{checkpoint_index}.pkl"), "wb") as f:
+        pickle.dump({str(k): v for k, v in eval_metrics_dump.items()}, f)
+    return agg
+
+
 class DeviceEvalSetup(NamedTuple):
     eval_fn: Callable
     dev: de.DeviceBundle
@@ -279,33 +343,11 @@ def setup_device_eval(
     p = cfg.RL.PPO
     switch = p.switch_policy
     action_codes = tuple(int(Action[a]) for a in cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
-    if switch:
-        if "state_dict_nav" not in ckpt or "state_dict_qualImprov" not in ckpt:
-            raise KeyError(
-                f"RL.PPO.switch_policy needs a switch checkpoint, not one holding "
-                f"{sorted(ckpt)}: merge one with scripts/torch_merge_switch_ckpt.py "
-                "NAV_CKPT QUALIMPROV_CKPT OUT_CKPT"
-            )
-        policy_nav = _policy(cfg, ckpt["state_dict_nav"], len(action_codes), device)
-        policy_qi = _policy(cfg, ckpt["state_dict_qualImprov"], len(action_codes), device)
-    else:
-        policy_nav = policy_qi = _policy(cfg, ckpt["state_dict"], len(action_codes), device)
-
+    policy_nav, policy_qi = eval_policies(cfg, ckpt, len(action_codes), device)
     if bundle is None:
-        # unheard splits get the disjoint procedural sound pool
-        bundle = build_micro_scene(
-            rows=4, cols=4, num_episodes=64,
-            near_target=not switch and p.sep_reward_weight == 1.0,
-            rir_length=cfg.TPU.MAX_RIR_LENGTH,
-            unheard_sounds="unheard" in cfg.TASK_CONFIG.DATASET.SPLIT.lower(),
-        )
-    # eval episode filters (env_utils.py:683-685) + the count clamp of
-    # ppo_trainer.py:1058-1078
-    episodes = bundle.episodes
-    if cfg.EPS_SCENES:
-        episodes = episodes.filter_by_scenes(cfg.EPS_SCENES)
-    if cfg.EPS_SCENES_N_IDS:
-        episodes = episodes.filter_by_scenes_n_ids(dict(cfg.EPS_SCENES_N_IDS))
+        bundle = default_eval_bundle(cfg)
+    # the count clamp of ppo_trainer.py:1058-1078
+    episodes = eval_episodes_of(cfg, bundle)
     n_episodes = min(episode_count or cfg.get("EVAL_EPISODE_COUNT", 1000), len(episodes))
     max_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
 
@@ -335,13 +377,15 @@ def evaluate_checkpoint_device(
     batch_envs: int = 16,
     device="cuda",
     timings: Optional[dict] = None,
+    actions_out: Optional[dict] = None,
 ) -> Dict:
     """Batched device evaluation: episodes go round-robin to `batch_envs`
     parallel envs; each call of the eval function plays one full horizon
     for the whole batch. Writes ``{split}_stats_ckpt_{i}_{seed}.json`` and
     ``eval_metrics_ckpt_{i}.pkl`` under MODEL_DIR in the JAX package's
     layout and returns the aggregates. `timings`, if given, receives the
-    set-up and episode-loop seconds and the episode and env-step counts."""
+    set-up and episode-loop seconds and the episode and env-step counts;
+    `actions_out`, if given, each episode's actions by (scene, episode id)."""
     t_setup = time.perf_counter()
     device = torch.device(device)
     cfg = config
@@ -369,7 +413,7 @@ def evaluate_checkpoint_device(
         per_env = {k: v.cpu().numpy() for k, v in per_env.items()}
         outs_h = {
             k: outs[k].cpu().numpy()
-            for k in ("mono_l2", "mem_l2", "bin_l2", "si_mono", "si_mem")
+            for k in ("mono_l2", "mem_l2", "bin_l2", "si_mono", "si_mem", "action")
         }
         # slots past the count clamp repeat earlier episodes (round-robin
         # padding) and are dropped from both dumps
@@ -408,24 +452,13 @@ def evaluate_checkpoint_device(
                     q["monoFromMem"][m] = float(outs_h["si_mem"][t, i, j])
                 ep_metrics["quality"].append(q)
             eval_metrics_dump[(ep.scene_id, ep.episode_id)] = ep_metrics
+            if actions_out is not None:
+                actions_out[(ep.scene_id, ep.episode_id)] = [int(a) for a in outs_h["action"][:, i]]
         done_eps += take
         batch_idx += 1
     t_end = time.perf_counter()
 
-    agg = {}
-    for k in next(iter(stats_episodes.values())):
-        vals = [v[k] for v in stats_episodes.values()]
-        agg[k] = {"mean": float(np.mean(vals)), "std": float(np.std(vals))}
-
-    out_dir = cfg.MODEL_DIR or "."
-    os.makedirs(out_dir, exist_ok=True)
-    stats_path = os.path.join(
-        out_dir, f"{cfg.EVAL.SPLIT}_stats_ckpt_{checkpoint_index}_{cfg.SEED}.json"
-    )
-    with open(stats_path, "w") as f:
-        json.dump(agg, f, indent=2)
-    with open(os.path.join(out_dir, f"eval_metrics_ckpt_{checkpoint_index}.pkl"), "wb") as f:
-        pickle.dump({str(k): v for k, v in eval_metrics_dump.items()}, f)
+    agg = write_eval_outputs(cfg, checkpoint_index, stats_episodes, eval_metrics_dump)
     if timings is not None:
         timings.update(
             setup_s=t_loop - t_setup, loop_s=t_end - t_loop,

@@ -8,15 +8,17 @@ class); the trainer renders the spectrograms on the device with
 ``ops.frontend.render_binaural_mixture``. ``SyntheticPassiveSource`` makes
 procedural sounds and RIRs from a seed, with no Matterport/SoundSpaces
 data, and yields the same batches as the JAX package's for the same
-generator state. The file-backed source (the reference's on-disk layout)
-is not ported yet (ROADMAP Queue 1 item 3).
+generator state. ``FilePassiveSource`` reads the reference's on-disk
+layout (datapoint pickles, RIR wavs, class-named mono wavs).
 
 Class vocabulary as dataset.py:13-17 (10 VoxCeleb speakers + music + esc,
 esc never a target). The train split resamples sounds every batch (data
 augmentation, dataset.py:110-127); val splits are deterministic.
 """
 
-from typing import Dict, Protocol
+import os
+import pickle
+from typing import Dict, List, Optional, Protocol
 
 import numpy as np
 
@@ -128,3 +130,96 @@ class SyntheticPassiveSource:
             "rirs": rirs,
             "target_class": classes[:, :1].astype(np.int32),
         }
+
+
+class FilePassiveSource:
+    """The reference's on-disk dataset layout (dataset.py:39-105):
+    ``datapoints_dir/{scene}.pkl`` -> {scene: [{'r': int, 'azimuth': int,
+    'all_s': [int]}]}; RIR wavs under ``rir_dir/{scene}/{azimuth}/{r}_{s}.wav``;
+    mono wavs named ``{class}_*.wav`` under ``audio_dir``. An unreadable or
+    empty RIR reads as zeros (dataset.py:170-176). Batches as
+    ``SyntheticPassiveSource.sample_batch``."""
+
+    def __init__(
+        self,
+        datapoints_dir: str,
+        rir_dir: str,
+        audio_dir: str,
+        scenes: List[str],
+        num_sources: int = 2,
+        wav_length: int = 16000,
+        rir_length: int = 16000,
+        max_datapoints_per_scene: Optional[int] = None,
+    ):
+        from scipy.io import wavfile
+
+        self.num_sources = num_sources
+        self.wav_length = wav_length
+        self.rir_length = rir_length
+        self._rir_dir = rir_dir
+        self._wavfile = wavfile
+
+        self._audio_by_class: Dict[int, List[np.ndarray]] = {}
+        for fname in sorted(os.listdir(audio_dir)):
+            cls = fname.split("_")[0]
+            if cls not in CLASS_NAMES_TO_LABELS:
+                continue
+            _, data = wavfile.read(os.path.join(audio_dir, fname))
+            data = np.asarray(data, np.float32)[:wav_length]
+            if len(data) < wav_length:
+                data = np.pad(data, (0, wav_length - len(data)))
+            self._audio_by_class.setdefault(CLASS_NAMES_TO_LABELS[cls], []).append(data)
+
+        self._datapoints: List[List[str]] = []  # per datapoint, its sources' RIR paths
+        for scene in scenes:
+            with open(os.path.join(datapoints_dir, scene + ".pkl"), "rb") as f:
+                pts = pickle.load(f)[scene]
+            if max_datapoints_per_scene:
+                pts = pts[:max_datapoints_per_scene]
+            for p in pts:
+                self._datapoints.append([
+                    os.path.join(rir_dir, scene, str(p["azimuth"]), f"{p['r']}_{s}.wav")
+                    for s in p["all_s"][:num_sources]
+                ])
+        self._rir_cache: Dict[str, np.ndarray] = {}
+
+    def __len__(self):
+        return len(self._datapoints)
+
+    def _load_rir(self, path: str) -> np.ndarray:
+        if path in self._rir_cache:
+            return self._rir_cache[path]
+        try:
+            _, rir = self._wavfile.read(path)
+            rir = np.asarray(rir, np.float32)
+            if rir.ndim == 1:
+                rir = np.stack([rir, rir], axis=-1)
+        except (ValueError, FileNotFoundError):
+            rir = np.zeros((self.rir_length, 2), np.float32)
+        if len(rir) == 0:
+            rir = np.zeros((self.rir_length, 2), np.float32)
+        out = np.zeros((self.rir_length, 2), np.float32)
+        n = min(len(rir), self.rir_length)
+        out[:n] = rir[:n]
+        self._rir_cache[path] = out
+        return out
+
+    def sample_batch(self, rng, batch_size, deterministic=False, start=0):
+        if deterministic:
+            idx = (start + np.arange(batch_size)) % len(self._datapoints)
+            local_rng = np.random.default_rng(42 + start)
+        else:
+            idx = rng.integers(0, len(self._datapoints), batch_size)
+            local_rng = rng
+
+        mono = np.zeros((batch_size, self.num_sources, self.wav_length), np.float32)
+        rirs = np.zeros((batch_size, self.num_sources, self.rir_length, 2), np.float32)
+        targets = np.zeros((batch_size, 1), np.int32)
+        for b, i in enumerate(idx):
+            classes = sample_classes(local_rng, self.num_sources)
+            targets[b, 0] = classes[0]
+            for s, path in enumerate(self._datapoints[i]):
+                variants = self._audio_by_class[classes[s]]
+                mono[b, s] = variants[local_rng.integers(0, len(variants))]
+                rirs[b, s] = self._load_rir(path)
+        return {"mono_wavs": mono, "rirs": rirs, "target_class": targets}

@@ -20,10 +20,12 @@ validation split's mono loss is written as ``best_ckpt_val.pth`` and
 config, ``utils/checkpoint.py``), which ``RL.PPO.
 pretrained_passive_separators_ckpt`` reads.
 
-Not ported yet: file-backed data (ROADMAP Queue 1 item 3) and
-``TPU.COMPUTE_DTYPE`` bfloat16 (item 5), both refused; data-parallel
-sharding over ``TPU.MESH_SHAPE`` (refused for more than one device) and the
-interrupted-state save, resume and requeue (item 4).
+The data comes from the reference's on-disk datasets when
+``SIMULATOR.AUDIO.*`` points at them (``_file_sources``), else from the
+synthetic sources. Not ported yet: ``TPU.COMPUTE_DTYPE`` bfloat16 (ROADMAP
+Queue 1 item 5), refused; data-parallel sharding over ``TPU.MESH_SHAPE``
+(refused for more than one device) and the interrupted-state save, resume
+and requeue (item 4).
 """
 
 import json
@@ -38,7 +40,11 @@ import torch
 from move2hear_tpu_torch.models.policy import Move2HearPassiveWoMemoryPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
 from move2hear_tpu_torch.ops.spec import masked_mix
-from move2hear_tpu_torch.pretrain.dataset import PassiveDataSource, SyntheticPassiveSource
+from move2hear_tpu_torch.pretrain.dataset import (
+    FilePassiveSource,
+    PassiveDataSource,
+    SyntheticPassiveSource,
+)
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
 from move2hear_tpu_torch.rl.ppo import ClippedAdam
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -57,16 +63,28 @@ def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.abs(pred - target).mean()
 
 
-def has_file_backed_passive_data(audio_cfg) -> bool:
-    """True where the JAX trainer would read the reference's on-disk
-    datasets: every split's datapoints and audio directories exist and the
-    datapoints directories hold scene pickles."""
+def passive_split_dirs(audio_cfg) -> Dict[str, Tuple[str, str, int]]:
+    """split -> (datapoints dir, audio dir, per-scene cap) of the reference's
+    on-disk layout; the nonoverlapping_val split reads the val datapoints
+    with the held-out (unheard) audio pool (datasets/dataset.py:40-52)."""
     root = os.path.join(audio_cfg.SOURCE_AGENT_LOCATION_DATAPOINTS_DIR,
                         audio_cfg.PASSIVE_DATASET_VERSION)
-    for split, audio_dir in (("train", audio_cfg.PASSIVE_TRAIN_AUDIO_DIR),
-                             ("val", audio_cfg.PASSIVE_TRAIN_AUDIO_DIR),
-                             ("val", audio_cfg.PASSIVE_NONOVERLAPPING_VAL_AUDIO_DIR)):
-        dp_dir = os.path.join(root, split)
+    return {
+        "train": (os.path.join(root, "train"), audio_cfg.PASSIVE_TRAIN_AUDIO_DIR,
+                  audio_cfg.NUM_PASSIVE_DATAPOINTS_PER_SCENE),
+        "val": (os.path.join(root, "val"), audio_cfg.PASSIVE_TRAIN_AUDIO_DIR,
+                audio_cfg.NUM_PASSIVE_DATAPOINTS_PER_SCENE_EVAL),
+        "nonoverlapping_val": (os.path.join(root, "val"),
+                               audio_cfg.PASSIVE_NONOVERLAPPING_VAL_AUDIO_DIR,
+                               audio_cfg.NUM_PASSIVE_DATAPOINTS_PER_SCENE_EVAL),
+    }
+
+
+def has_file_backed_passive_data(audio_cfg) -> bool:
+    """True where the reference's on-disk datasets are: every split's
+    datapoints and audio directories exist and the datapoints directories
+    hold scene pickles."""
+    for dp_dir, audio_dir, _ in passive_split_dirs(audio_cfg).values():
         if not (os.path.isdir(dp_dir) and os.path.isdir(audio_dir)):
             return False
         if not any(f.endswith(".pkl") for f in os.listdir(dp_dir)):
@@ -108,16 +126,32 @@ class PassiveTrainer(BaseRLTrainer):
         self._weights = weights
 
     def _default_sources(self):
-        if has_file_backed_passive_data(self.config.TASK_CONFIG.SIMULATOR.AUDIO):
-            raise NotImplementedError(
-                "file-backed passive datasets are not ported yet (ROADMAP Queue 1 "
-                "item 3); the port pretrains on the synthetic sources only"
-            )
+        """The file-backed sources when SIMULATOR.AUDIO.* points at the
+        reference's datasets (passive_trainer.py:114-155), else the
+        synthetic procedural sources."""
+        audio_cfg = self.config.TASK_CONFIG.SIMULATOR.AUDIO
+        if has_file_backed_passive_data(audio_cfg):
+            return self._file_sources(audio_cfg)
         return {
             "train": SyntheticPassiveSource(num_datapoints=256, seed=0),
             "val": SyntheticPassiveSource(num_datapoints=64, seed=1),
             "nonoverlapping_val": SyntheticPassiveSource(num_datapoints=64, seed=2),
         }
+
+    @staticmethod
+    def _file_sources(audio_cfg) -> Dict[str, FilePassiveSource]:
+        """One FilePassiveSource per split over every scene pickle of its
+        datapoints directory (datasets/dataset.py:39-58)."""
+        sources = {}
+        for split, (dp_dir, audio_dir, cap) in passive_split_dirs(audio_cfg).items():
+            scenes = sorted(f[:-4] for f in os.listdir(dp_dir) if f.endswith(".pkl"))
+            sources[split] = FilePassiveSource(
+                datapoints_dir=dp_dir, rir_dir=audio_cfg.RIR_DIR, audio_dir=audio_dir,
+                scenes=scenes, max_datapoints_per_scene=cap,
+            )
+            logger.info("%s: %d file-backed datapoints over %d scenes from %s",
+                        split.upper(), len(sources[split]), len(scenes), dp_dir)
+        return sources
 
     def new_policy(self) -> Move2HearPassiveWoMemoryPolicy:
         if self._weights is None:

@@ -16,6 +16,11 @@ formula is ``scale_by_adam``'s, with the learning rate set per update.
 
 Unlike the JAX package's pure functions, the update functions here change
 the policy's parameters and the optimizer states in place.
+
+``make_update_sep`` is the host env path's separator refit: it renders the
+spectrograms anew from the stored render keys (``rl/rollout.py:
+RolloutSep``). The device path refits from the outputs its collect cached
+(``rl/device_rollout.py:make_update_sep_from_slabs``).
 """
 
 from dataclasses import dataclass
@@ -24,6 +29,7 @@ from typing import Dict, List, Optional
 import torch
 
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
+from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 EPS_PPO = 1e-5
@@ -253,5 +259,79 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
             state.opt_pol.step(lr)
             aux.append(losses)
         return torch.stack(aux).mean(dim=0)
+
+    return update
+
+
+def make_update_sep(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
+                    gt_mono_mag_norm: float = 0.0, chunk_rows: Optional[int] = None):
+    """The separator refit of the host env path (``ppo.py:179-246``; the JAX
+    package's ``rl/ppo.py:make_update_sep``): ``update(state, rollouts,
+    bank, generator=None, lr_scale=1.0)`` -> (bin L1, mono L1, memory L1)
+    means over the ppo_epoch x num_mini_batch steps, a (3,) tensor.
+
+    The spectrograms are rendered anew on the device from the stored
+    (sound id, RIR) keys, magnitudes only. The passive separators are
+    frozen and their BatchNorm uses running statistics, so their outputs
+    are the same in every epoch: the update renders and runs them once, in
+    chunks of `chunk_rows` buffer rows (all rows when None), without
+    gradients; then each step trains the acoustic memory on the L1 loss of
+    its prediction against the GT mono magnitude. The bin and mono losses
+    are logged only."""
+
+    def update(state: AgentState, rollouts, bank, generator=None, lr_scale=1.0):
+        lr = cfg.lr_sep * lr_scale
+        masks = rollouts["masks"][:-1]
+        rows, n = masks.shape[0], masks.shape[1]
+        chunk = chunk_rows or rows
+        pred_mono, gt_mono, bin_l1, mono_l1 = [], [], [], []
+        with torch.no_grad():
+            for r0 in range(0, rows, chunk):
+                sl = slice(r0, min(rows, r0 + chunk))
+
+                def flat(v):
+                    v = v[sl]
+                    return v.reshape((v.shape[0] * n,) + tuple(v.shape[2:]))
+
+                rendered = render_binaural_mixture(
+                    bank[flat(rollouts["sound_ids"])], flat(rollouts["rirs"]),
+                    gt_mono_mag_norm=gt_mono_mag_norm, mags_only=True,
+                )
+                mix = rendered.mixed_bin_audio_mag
+                pm = policy.get_binSepMasks(
+                    {"mixed_bin_audio_mag": mix, "target_class": flat(rollouts["target_class"])}
+                )
+                mono = policy.convert_bin2mono(pm, mix)
+                gt = rendered.gt_mono_comps[..., 0::2][..., :1]
+                gt_bin = rendered.gt_bin_comps[..., 0::2][..., :2]
+                bin_l1.append(torch.abs(torch.expm1(mix) * pm - gt_bin).mean(dim=(1, 2, 3)))
+                mono_l1.append(torch.abs(mono - gt).mean(dim=(1, 2, 3)))
+                pred_mono.append(mono.reshape((-1, n) + tuple(mono.shape[1:])))
+                gt_mono.append(gt.reshape((-1, n) + tuple(gt.shape[1:])))
+        pred_mono, gt_mono = torch.cat(pred_mono), torch.cat(gt_mono)
+        prev_masked = rollouts["prev_pred_monoFromMem"][:-1] * masks[:, :, :, None, None]
+        bin_loss, mono_loss = torch.cat(bin_l1).mean(), torch.cat(mono_l1).mean()
+
+        if cfg.num_mini_batch == 1:
+            # full batch: a batch-mean gradient does not depend on env order
+            perms = [None] * cfg.ppo_epoch
+        else:
+            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs, cfg.num_mini_batch,
+                                 device=masks.device)
+        mem_losses = []
+        for idx in perms:
+            sel = slice(None) if idx is None else idx
+
+            def flat_sel(v):
+                v = v[:, sel]
+                return v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
+
+            state.opt_sep.zero_grad()
+            pred_mem = policy.get_monoFromMem(flat_sel(pred_mono), flat_sel(prev_masked))
+            loss = torch.abs(pred_mem - flat_sel(gt_mono)).mean()
+            loss.backward()
+            state.opt_sep.step(lr)
+            mem_losses.append(loss.detach())
+        return torch.stack([bin_loss, mono_loss, torch.stack(mem_losses).mean()])
 
     return update

@@ -1,18 +1,23 @@
 """The PPO trainer (``audio_separation/rl/ppo/ppo_trainer.py``; the JAX
-package's ``rl/trainer.py``): device-path training and checkpoint
-evaluation on the device route.
+package's ``rl/trainer.py``): training on the device path or the host env
+path, and checkpoint evaluation on the device or the host evaluator.
 
 Cyclic schedule (ppo_trainer.py:730-994): num_updates_per_cycle x
-(collect num_steps + policy update), then one cached separator refit over
-the cycle's buffer. Separation rewards (near-target,
-``sep_reward_weight`` 1 and ``nav_reward_weight`` 0) or navigation rewards
-(far-target, 0 and 1). The RIRs come from the dense banks, or, where those
-exceed ``TPU.MAX_DEVICE_BANK_BYTES`` or ``TPU.RIR_MODE`` is sub, from the
-episode-keyed sub-bank slab (``env/sub_bank.py``). Not ported yet, and
-raising NotImplementedError: the host env path (``TPU.RIR_MODE`` host, a
-sub-bank over the budget), DDPPO across processes (world size > 1), other
-reward weightings, the host evaluator, file-backed scene data, and the JAX
-package's ``TPU`` knobs that ``refuse_unported_knobs`` lists.
+(collect num_steps + policy update), then the separator refit over the
+cycle's buffer. The gate of ``train``: the device path with the dense RIR
+banks when they fit ``TPU.MAX_DEVICE_BANK_BYTES``, else with the
+episode-keyed sub-bank slab (``env/sub_bank.py``) when that fits, else the
+host env path (``_train_host``: host envs in worker processes, one device
+step per env step); ``TPU.RIR_MODE`` dense, sub or host forces a route and
+``TPU.DEVICE_ENV`` False forces the host path. The device path trains with
+separation rewards (near-target, ``sep_reward_weight`` 1 and
+``nav_reward_weight`` 0) or navigation rewards (far-target, 0 and 1); the
+host path, as the JAX package's, with separation rewards at (1, 0) and the
+env's rewards otherwise. Scene data comes from SoundSpaces-layout files
+when the config points at them (``env/bundle.py``), else from the
+synthetic micro-scene. Not ported yet, and raising NotImplementedError:
+DDPPO across processes (world size > 1) and the JAX package's ``TPU``
+knobs that ``refuse_unported_knobs`` lists.
 """
 
 import dataclasses
@@ -20,11 +25,17 @@ import logging
 import os
 import time
 from collections import deque
+from typing import Dict
 
 import numpy as np
 import torch
 
 import move2hear_tpu_torch.env.device_env as de
+from move2hear_tpu_torch.env.bundle import (
+    bundle_from_config,
+    has_file_backed_data,
+    split_scenes_round_robin,
+)
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.env.sim import Action
 from move2hear_tpu_torch.env.sub_bank import (
@@ -36,21 +47,37 @@ from move2hear_tpu_torch.env.sub_bank import (
     row_bytes,
     sub_bank_capacity,
 )
+from move2hear_tpu_torch.env.vector_env import construct_envs
 from move2hear_tpu_torch.eval.device_evaluator import evaluate_checkpoint_device
+from move2hear_tpu_torch.eval.evaluator import evaluate_checkpoint, host_obs_to_device
+from move2hear_tpu_torch.eval.metrics import stft_l2_distance
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
+from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
 from move2hear_tpu_torch.rl.device_rollout import (
     RolloutSepIdx,
     make_collect,
     make_update_sep_from_slabs,
+    q_util,
+    sep_reward,
     unpack_stats,
     write_sep_slab,
 )
+from move2hear_tpu_torch.rl.gae import compute_returns
 from move2hear_tpu_torch.rl.ppo import (
     PPOConfig,
     create_agent_state,
     load_pretrained_passive_separators,
     make_update_pol,
+    make_update_sep,
+)
+from move2hear_tpu_torch.rl.rollout import (
+    after_update_pol,
+    after_update_sep,
+    create_rollout_pol,
+    create_rollout_sep,
+    insert_pol,
+    insert_sep,
 )
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from move2hear_tpu_torch.utils.misc import linear_decay
@@ -59,18 +86,6 @@ from move2hear_tpu_torch.utils.tb import TensorboardWriter
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 logger = logging.getLogger(__name__)
-
-
-def has_file_backed_data(task_config) -> bool:
-    """True when episode files AND scene metadata exist on disk."""
-    d = task_config.DATASET
-    data_path = d.DATA_PATH.format(version=d.VERSION, split=d.SPLIT)
-    content_dir = os.path.join(os.path.dirname(data_path), "content")
-    has_episodes = os.path.isfile(data_path) or (
-        os.path.isdir(content_dir)
-        and any(f.endswith(".json.gz") for f in os.listdir(content_dir))
-    )
-    return has_episodes and os.path.isdir(task_config.SIMULATOR.AUDIO.META_DIR)
 
 
 def refuse_unported_knobs(tpu, training: bool = True) -> None:
@@ -135,10 +150,14 @@ class PPOTrainer(BaseRLTrainer):
             return self._bundle
         cfg = self.config
         if has_file_backed_data(cfg.TASK_CONFIG):
-            raise NotImplementedError(
-                "file-backed scene data is not ported yet (ROADMAP Queue 1 item "
-                "3); the port trains on the synthetic micro-scene"
-            )
+            # EPS_SCENES restricts the train scene set (env_utils.py:552-553);
+            # the evaluators filter their own episodes
+            scenes = (list(cfg.EPS_SCENES)
+                      if cfg.EPS_SCENES and cfg.TASK_CONFIG.DATASET.SPLIT[:5] == "train"
+                      else None)
+            self._bundle = bundle_from_config(cfg.TASK_CONFIG, scenes=scenes,
+                                              max_rir_length=cfg.TPU.MAX_RIR_LENGTH)
+            return self._bundle
         logger.warning("no scene bundle provided; using synthetic micro-scene")
         self._bundle = build_micro_scene(
             rows=4, cols=4, num_episodes=64, near_target=cfg.RL.PPO.sep_reward_weight == 1.0,
@@ -162,58 +181,56 @@ class PPOTrainer(BaseRLTrainer):
     # ------------------------------------------------------------------
     def train(self) -> None:
         """Dispatch to the device path, on the dense banks or the RIR
-        sub-banks. RIR_MODE dense or sub forces that route; auto takes dense
-        when its banks fit TPU.MAX_DEVICE_BANK_BYTES, else sub when the
-        sub-bank at one window's capacity fits it."""
+        sub-banks, or to the host env path. RIR_MODE dense, sub or host
+        forces that route, and DEVICE_ENV False the host path; auto takes
+        dense when its banks fit TPU.MAX_DEVICE_BANK_BYTES, else sub when the
+        sub-bank at one window's capacity fits it, else host."""
         cfg = self.config
         forced = str(cfg.TPU.RIR_MODE)
         refuse_unported_knobs(cfg.TPU)
         if forced not in ("auto", "dense", "sub", "host"):
             raise ValueError(f"TPU.RIR_MODE must be auto|dense|sub|host, got {forced!r}")
-        if forced == "host" or not cfg.TPU.DEVICE_ENV:
-            raise NotImplementedError(
-                f"TPU.RIR_MODE={forced} / DEVICE_ENV={cfg.TPU.DEVICE_ENV}: the host "
-                "env path is not ported yet (ROADMAP Queue 1 item 3)"
-            )
         if world_size() > 1:
             raise NotImplementedError(
                 "DDPPO across processes (and its preemptive rollout sync) is "
                 "not ported yet (ROADMAP Queue 1 item 4)"
             )
+        if forced == "host" or not cfg.TPU.DEVICE_ENV:
+            self._train_host()
+            return
+        bundle = self._make_bundle()
+        budget = int(cfg.TPU.MAX_DEVICE_BANK_BYTES)
         p = cfg.RL.PPO
+        route = forced
+        if route == "auto":
+            dense = de.estimate_bank_bytes(bundle)
+            # the dense RIR bank grows with V^2 per scene; the sub-bank, V-linearly
+            sub = estimate_sub_bank_bytes(
+                bundle, cfg.NUM_PROCESSES, cfg.NUM_SOUNDS_IN_MIX, p.num_steps,
+                cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
+            )
+            route = "dense" if dense <= budget else "sub" if sub <= budget else "host"
+            if route != "dense":
+                logger.warning(
+                    "the device banks would take %.2f GiB dense and %.2f GiB sub-banked, "
+                    "TPU.MAX_DEVICE_BANK_BYTES is %.2f GiB: using the %s", dense / 2**30,
+                    sub / 2**30, budget / 2**30,
+                    "episode-keyed RIR sub-banks" if route == "sub" else "host env path",
+                )
+        if route == "host":
+            self._train_host()
+            return
+        # an explicit dense or sub skips the budget: a bank too large for the
+        # device fails loudly when it is allocated
         if (p.sep_reward_weight, p.nav_reward_weight) not in ((1.0, 0.0), (0.0, 1.0)):
             raise NotImplementedError(
                 f"sep_reward_weight {p.sep_reward_weight} with nav_reward_weight "
                 f"{p.nav_reward_weight}: the device path trains with separation rewards "
                 "(1, 0) or navigation rewards (0, 1), as the JAX package's does; it "
-                "has no route that weighs the two"
+                "has no route that weighs the two (the host env path, TPU.RIR_MODE "
+                "host, takes the env's rewards there)"
             )
-        bundle = self._make_bundle()
-        if forced in ("dense", "sub"):
-            # an explicit route skips the budget: a bank too large for the
-            # device fails loudly when it is allocated
-            self._train_device(rir_mode=forced)
-            return
-        budget = int(cfg.TPU.MAX_DEVICE_BANK_BYTES)
-        dense = de.estimate_bank_bytes(bundle)
-        if dense <= budget:
-            self._train_device()
-            return
-        # the dense RIR bank grows with V^2 per scene; the sub-bank, V-linearly
-        sub = estimate_sub_bank_bytes(
-            bundle, cfg.NUM_PROCESSES, cfg.NUM_SOUNDS_IN_MIX, p.num_steps,
-            cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
-        )
-        if sub > budget:
-            raise NotImplementedError(
-                f"the device banks would take {dense / 2**30:.2f} GiB dense and "
-                f"{sub / 2**30:.2f} GiB sub-banked, over TPU.MAX_DEVICE_BANK_BYTES "
-                f"({budget / 2**30:.2f} GiB); the host env path is not ported yet "
-                "(ROADMAP Queue 1 item 3)"
-            )
-        logger.info("the dense device banks would take %.2f GiB; using the episode-keyed "
-                    "RIR sub-banks (%.2f GiB at least)", dense / 2**30, sub / 2**30)
-        self._train_device(rir_mode="sub")
+        self._train_device(rir_mode=route)
 
     def _make_sub_bank(self, bundle, dev, order, device) -> RirSubBank:
         """The RIR sub-bank of the sub route: TPU.SUB_BANK_ROWS slots, or
@@ -240,6 +257,28 @@ class PPOTrainer(BaseRLTrainer):
                     sub_bank.capacity, v_pad, bundle.audio_db.rir_length,
                     sub_bank.capacity * sub_bank.row_bytes / 2**30)
         return sub_bank
+
+    def _load_start_state(self, policy, state) -> int:
+        """Resume the full train state from RESUME_CKPT, or load the
+        pretrained passive separators; returns the update count to start
+        from."""
+        cfg, p = self.config, self.config.RL.PPO
+        resume_path = cfg.RESUME_CKPT
+        if resume_path:
+            ckpt = load_checkpoint(resume_path)
+            refuse_reference_layout(ckpt["state_dict"], f"RESUME_CKPT {resume_path}")
+            policy.load_state_dict(ckpt["state_dict"])
+            state.opt_pol.load_state_dict(ckpt["optimizer_pol"])
+            state.opt_sep.load_state_dict(ckpt["optimizer_sep"])
+            update_count = int(ckpt["extra_state"]["update_count"])
+            logger.info("resumed full train state from %s at update %d", resume_path, update_count)
+            return update_count
+        if p.pretrained_passive_separators_ckpt:
+            load_pretrained_passive_separators(
+                policy, load_checkpoint(p.pretrained_passive_separators_ckpt)["state_dict"]
+            )
+            logger.info("loaded pretrained passive separators")
+        return 0
 
     def _train_device(self, rir_mode: str = "dense") -> None:
         """The device training loop on the separate-programs route: per
@@ -307,21 +346,7 @@ class PPOTrainer(BaseRLTrainer):
 
         policy = self._new_policy()
         state = create_agent_state(ppo_cfg, policy)
-        update_count = 0
-        resume_path = cfg.RESUME_CKPT
-        if resume_path:
-            ckpt = load_checkpoint(resume_path)
-            refuse_reference_layout(ckpt["state_dict"], f"RESUME_CKPT {resume_path}")
-            policy.load_state_dict(ckpt["state_dict"])
-            state.opt_pol.load_state_dict(ckpt["optimizer_pol"])
-            state.opt_sep.load_state_dict(ckpt["optimizer_sep"])
-            update_count = int(ckpt["extra_state"]["update_count"])
-            logger.info("resumed full train state from %s at update %d", resume_path, update_count)
-        elif p.pretrained_passive_separators_ckpt:
-            load_pretrained_passive_separators(
-                policy, load_checkpoint(p.pretrained_passive_separators_ckpt)["state_dict"]
-            )
-            logger.info("loaded pretrained passive separators")
+        update_count = self._load_start_state(policy, state)
 
         # pose-indexed rollout observations whenever the collect's
         # per-rollout visual-feature bank is active: the update then runs
@@ -479,6 +504,303 @@ class PPOTrainer(BaseRLTrainer):
         self.sub_bank_log.append({k: v - before[k] for k, v in now.items()})
 
     # ------------------------------------------------------------------
+    def _make_envs(self, bundle):
+        """The host envs of the host path (env_utils.py:531-687): a
+        multi-scene bundle's scenes go round-robin to the envs (at least as
+        many scenes as envs; shuffled for a train split), a single scene's
+        episodes are split over the envs when there are enough. Worker
+        processes unless USE_SYNC_VECENV or not USE_VECENV."""
+        cfg = self.config
+        n = cfg.NUM_PROCESSES
+        p = cfg.RL.PPO
+        near = p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0
+        scene_names = list(bundle.scenes)
+        if len(scene_names) > 1:
+            splits = split_scenes_round_robin(
+                scene_names, n, shuffle=cfg.TASK_CONFIG.DATASET.SPLIT[:5] == "train",
+                seed=cfg.SEED,
+            )
+            per_env = [bundle.episodes.filter_by_scenes(splits[i]) for i in range(n)]
+        elif len(bundle.episodes) >= n:
+            per_env = [bundle.episodes.split_for_rank(i, n) for i in range(n)]
+        else:
+            per_env = [bundle.episodes] * n
+        env_fns = [
+            bundle.make_env_fn(
+                max_episode_steps=cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
+                with_distance_reward=cfg.RL.WITH_DISTANCE_REWARD and not near,
+                distance_reward_scale=cfg.RL.DISTANCE_REWARD_SCALE,
+                gt_mono_mag_norm=cfg.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM,
+                possible_actions=tuple(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
+                seed=cfg.SEED + i,  # per-env seeds (ppo_trainer.py:605-613)
+                episodes=per_env[i],
+            )
+            for i in range(n)
+        ]
+        return construct_envs(env_fns, use_sync=cfg.USE_SYNC_VECENV or not cfg.USE_VECENV)
+
+    @staticmethod
+    def _host_batch(observations) -> Dict[str, np.ndarray]:
+        """The envs' observations stacked along a leading env axis."""
+        return {k: np.stack([np.asarray(o[k]) for o in observations]) for k in observations[0]}
+
+    @staticmethod
+    def _build_rollout_step(policy: Move2HearPolicy, gt_mono_mag_norm: float):
+        """One device step per env step: ``step(bank, host, hidden, masks,
+        prev_mem_masked, generator)`` renders the envs' render keys
+        (magnitudes only: the loop reads phases only through the same-phase
+        STFT-L2), runs the separator chain, the acoustic memory and the
+        policy, and returns (obs, pred_masks, pred_mono, pred_mem, act,
+        stats) with the separation utility q and the STFT-L2s in stats."""
+
+        @torch.no_grad()
+        def step(bank, host, hidden, masks, prev_mem_masked, generator):
+            rendered = render_binaural_mixture(
+                bank[host["sound_ids"]], host["rirs"], gt_mono_mag_norm=gt_mono_mag_norm,
+                mags_only=True,
+            )
+            obs = {
+                "mixed_bin_audio_mag": rendered.mixed_bin_audio_mag,
+                "gt_bin_comps": rendered.gt_bin_comps,
+                "gt_mono_comps": rendered.gt_mono_comps,
+                "target_class": host["target_class"],
+            }
+            for k in ("rgb", "depth"):
+                if k in host:
+                    obs[k] = host[k]
+            pm = policy.get_binSepMasks(obs)
+            mono = policy.convert_bin2mono(pm, obs["mixed_bin_audio_mag"])
+            mem = policy.get_monoFromMem(mono, prev_mem_masked)
+            act = policy.act(obs, hidden, masks, pm, mono, mem, generator=generator)
+            bin_l2, mono_l2 = stft_l2_distance(obs["mixed_bin_audio_mag"], pm,
+                                               obs["gt_bin_comps"], mono, obs["gt_mono_comps"])
+            _, mem_l2 = stft_l2_distance(obs["mixed_bin_audio_mag"], pm, obs["gt_bin_comps"],
+                                         mem, obs["gt_mono_comps"])
+            stats = {"q": q_util(mem, obs["gt_mono_comps"][..., 0::2][..., :1]),
+                     "bin_l2": bin_l2, "mono_l2": mono_l2, "mem_l2": mem_l2}
+            return obs, pm, mono, mem, act, stats
+
+        return step
+
+    def _train_host(self) -> None:
+        """The host env path (the JAX package's ``_train_host``): host envs
+        step the graph and read the RIRs and frames; per env step the host
+        ships the render keys (sound ids, RIRs, target class, frames) to the
+        device, which renders, runs the policy forward and the separation
+        reward, with one host fetch a step (the next actions and the step's
+        stats). Per cycle, num_updates_per_cycle x (num_steps env steps +
+        policy update), then num_updates_per_cycle separator refits that
+        render anew from the stored keys (``rl/ppo.py:make_update_sep``).
+        Separation rewards at (sep 1, nav 0), the env's rewards otherwise.
+        Per cycle ``self.cycle_log`` records the seconds in the env step, the
+        device step, the policy updates and the refits (host clock; the
+        device is synchronised at each phase's end), ``self.loss_log`` the
+        losses; ``self.rir_bytes_per_step`` is the RIR bytes a step ships."""
+        cfg = self.config
+        ppo_cfg = self._ppo_config()
+        p = cfg.RL.PPO
+        device = torch.device(self.device)
+        on_cuda = device.type == "cuda"
+        self._rir_mode = "host"
+        t_setup = time.perf_counter()
+
+        def sync():
+            if on_cuda:
+                torch.cuda.synchronize(device)
+            return time.perf_counter()
+
+        bundle = self._make_bundle()
+        envs = self._make_envs(bundle)
+        self.vector_env = type(envs).__name__
+        try:
+            self._host_loop(envs, bundle, ppo_cfg, p, device, sync, t_setup)
+        finally:
+            envs.close()
+
+    def _host_loop(self, envs, bundle, ppo_cfg, p, device, sync, t_setup) -> None:
+        cfg = self.config
+        n_envs = envs.num_envs
+        t_steps = p.num_steps
+        cycle = p.num_updates_per_cycle
+        max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
+        gt_norm = cfg.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM
+        sep_rewards = p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0
+
+        policy = self._new_policy()
+        state = create_agent_state(ppo_cfg, policy)
+        update_count = self._load_start_state(policy, state)
+        wav_bank = torch.from_numpy(np.asarray(bundle.audio_db.mono_bank(), np.float32)).to(device)
+        rollout_step = self._build_rollout_step(policy, gt_norm)
+        update_pol = make_update_pol(policy, ppo_cfg, n_envs)
+        # the refit renders one rollout's rows (num_steps x envs) at a time
+        update_sep = make_update_sep(policy, ppo_cfg, n_envs, gt_mono_mag_norm=gt_norm,
+                                     chunk_rows=t_steps)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(cfg.SEED))
+
+        obs0_host = self._host_batch(envs.reset())
+        host = host_obs_to_device(obs0_host, device, batch=False)
+        self.rir_bytes_per_step = int(obs0_host["rirs"].nbytes)
+        pol_sensors = [k for k in ("mixed_bin_audio_mag", "rgb", "depth", "target_class")
+                       if k == "mixed_bin_audio_mag" or k in obs0_host]
+        obs_shapes = {"mixed_bin_audio_mag": (512, 32, 2),
+                      **{k: obs0_host[k].shape[1:] for k in pol_sensors[1:]}}
+        rollouts_pol = create_rollout_pol(t_steps, n_envs, obs_shapes, p.hidden_size,
+                                          device=device)
+        rollouts_sep = create_rollout_sep(t_steps * cycle, n_envs, cfg.NUM_SOUNDS_IN_MIX,
+                                          bundle.audio_db.rir_length, device=device)
+
+        # the initial forward, which seeds slot 0 of both storages
+        masks_now = torch.ones((n_envs, 1), device=device)
+        cur_obs, cur_pm, cur_mono, cur_mem, cur_act, cur_stats = rollout_step(
+            wav_bank, host, torch.zeros((n_envs, p.hidden_size), device=device), masks_now,
+            torch.zeros((n_envs, 512, 32, 1), device=device), generator,
+        )
+        for k in pol_sensors:
+            rollouts_pol.observations[k][0].copy_(cur_obs[k])
+        for k in ("sound_ids", "rirs", "target_class"):
+            getattr(rollouts_sep, k)[0].copy_(host[k])
+        host_actions = cur_act.action[:, 0].cpu().numpy()
+
+        win = p.reward_window_size
+        windows = {
+            k: deque(maxlen=win)
+            for k in ("reward", "steps", "mono_l2_last", "mono_l2_all", "mem_l2_last",
+                      "mem_l2_all", "bin_l2_all", "ndg", "dg")
+        }
+        cur_ep = {k: np.zeros((n_envs,)) for k in ("reward", "step", "bin", "mono", "mem")}
+        probs_win = deque(maxlen=win)
+        tb = TensorboardWriter(cfg.TENSORBOARD_DIR, flush_secs=30)
+        os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
+        self.loss_log, self.cycle_log = [], []
+        self.steady_fps = 0.0
+        steady_t0, steady_steps0 = None, 0
+        total_env_steps = 0
+        num_cycles = max(1, (cfg.NUM_UPDATES - update_count) // cycle)
+        self.setup_s = sync() - t_setup
+
+        def decay(i):
+            return linear_decay(i, cfg.NUM_UPDATES)
+
+        for cycle_idx in range(num_cycles):
+            secs = dict.fromkeys(("env", "device_step", "update", "refit"), 0.0)
+            reward_abs, pol_l = [], []
+            t_cycle = time.perf_counter()
+            sep_step = 0
+            for sub in range(cycle):
+                idx = update_count + sub
+                for step_t in range(t_steps):
+                    t0 = time.perf_counter()
+                    outputs = envs.step([int(a) for a in host_actions])
+                    t1 = time.perf_counter()
+                    secs["env"] += t1 - t0
+                    obs_list, env_rewards, dones, infos = (list(x) for x in zip(*outputs))
+                    host = host_obs_to_device(self._host_batch(obs_list), device, batch=False)
+                    masks_next = torch.tensor([[0.0] if d else [1.0] for d in dones],
+                                              device=device)
+                    prev_mem = cur_mem * masks_next[:, :, None, None]
+                    nxt = rollout_step(wav_bank, host, cur_act.hidden, masks_next, prev_mem,
+                                       generator)
+                    next_obs, next_pm, next_mono, next_mem, next_act, next_stats = nxt
+                    # this step's reward, final once the next q is known
+                    if sep_rewards:
+                        # the bonus keys on env 0's episode step, as the
+                        # reference's current_episode_step[0] (ppo_trainer.py:395)
+                        rewards = sep_reward(
+                            cur_stats["q"], next_stats["q"], masks_next[:, 0],
+                            int(cur_ep["step"][0]) == max_ep_steps - 2,
+                            p.extra_reward_multiplier,
+                        )[:, None]
+                    else:
+                        rewards = torch.tensor(np.asarray(env_rewards, np.float32),
+                                               device=device)[:, None]
+                    # one host fetch a step: the next actions and the stats
+                    fetched = torch.cat([
+                        next_act.action.to(torch.float32), rewards, cur_stats["bin_l2"],
+                        cur_stats["mono_l2"], cur_stats["mem_l2"], next_act.probs,
+                    ], dim=1).cpu().numpy()
+                    host_actions = fetched[:, 0].astype(np.int64)
+                    rew_h, bin_h, mono_h, mem_h = (fetched[:, i] for i in range(1, 5))
+                    probs_win.append(fetched[:, 5:].mean(axis=0))
+                    reward_abs.append(np.abs(rew_h))
+                    self._absorb_stats({
+                        "q": rew_h[None], "done": np.asarray(dones)[None], "reward": rew_h[None],
+                        "bin_l2": bin_h[None], "mono_l2": mono_h[None], "mem_l2": mem_h[None],
+                        "ndg": np.asarray([i["normalized_geo_distance_to_target_audio_source"]
+                                           for i in infos])[None],
+                        "geo": np.asarray([i["geo_distance_to_target_audio_source"]
+                                           for i in infos])[None],
+                    }, windows, cur_ep)
+
+                    insert_pol(rollouts_pol, step_t, {k: next_obs[k] for k in pol_sensors},
+                               cur_act.hidden, cur_act.action, cur_act.action_log_probs,
+                               cur_act.value, rewards, masks_next, cur_pm, cur_mono, cur_mem)
+                    insert_sep(rollouts_sep, sep_step, host["sound_ids"], host["rirs"],
+                               host["target_class"], masks_next, cur_mem)
+                    sep_step += 1
+                    cur_obs, cur_pm, cur_mono, cur_mem, cur_act, cur_stats = nxt
+                    total_env_steps += n_envs
+                    secs["device_step"] += time.perf_counter() - t1
+
+                # policy update
+                t2 = time.perf_counter()
+                rollouts_pol.value_preds[-1].copy_(cur_act.value)
+                rollouts_pol.returns.copy_(compute_returns(
+                    rollouts_pol.rewards, rollouts_pol.value_preds, rollouts_pol.masks,
+                    ppo_cfg.gamma, ppo_cfg.tau, ppo_cfg.use_gae,
+                ))
+                pol_l.append(update_pol(
+                    state, rollouts_pol.as_dict(), generator,
+                    decay(idx) if p.use_linear_lr_decay else 1.0,
+                    decay(idx) if p.use_linear_clip_decay else 1.0,
+                ))
+                after_update_pol(rollouts_pol)
+                secs["update"] += sync() - t2
+
+            # separator refit (ppo_trainer.py:979-994)
+            t3 = time.perf_counter()
+            sep_l = [
+                update_sep(state, rollouts_sep.as_dict(), wav_bank, generator,
+                           decay(update_count + i) if p.use_linear_lr_decay else 1.0)
+                for i in range(cycle)
+            ]
+            after_update_sep(rollouts_sep)
+            pol_h = torch.stack(pol_l).cpu().numpy()
+            sep_h = torch.stack(sep_l).cpu().numpy()
+            secs["refit"] = sync() - t3
+            update_count += cycle
+            self.loss_log.append((pol_h, sep_h))
+            self.cycle_log.append({
+                **secs, "total": time.perf_counter() - t_cycle,
+                "env_steps": cycle * t_steps * n_envs,
+                "reward_abs_mean": float(np.mean(reward_abs)),
+            })
+            steps_now = update_count * t_steps * n_envs
+            lr_now = p.lr_pol * (decay(update_count) if p.use_linear_lr_decay else 1.0)
+            self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1], lr_now,
+                                   steps_now)
+            if (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
+                value_loss, action_loss, entropy = pol_h[-1]
+                logger.info(
+                    "update %d | env t %.1f | dev t %.1f | value %.4f action %.4f entropy "
+                    "%.3f | sep bin %.4f mono %.4f mem %.4f | win reward %.4f",
+                    update_count, secs["env"], secs["device_step"], value_loss, action_loss,
+                    entropy, *sep_h[-1],
+                    float(np.mean(windows["reward"])) if windows["reward"] else 0.0,
+                )
+            # steady-state fps from the end of the first cycle on
+            if steady_t0 is None:
+                steady_t0, steady_steps0 = time.time(), total_env_steps
+            else:
+                self.steady_fps = (total_env_steps - steady_steps0) / (time.time() - steady_t0)
+            if cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
+                self._save(state, update_count, cycle_idx)
+
+        tb.close()
+        self._save(state, update_count, num_cycles)
+        self._windows = windows
+
+    # ------------------------------------------------------------------
     def _write_tb_scalars(self, tb, windows, probs_win, pol_losses, sep_losses, lr_now, step):
         """The reference's per-update training scalars (ppo_trainer.py:905-957)
         and the separator refit losses."""
@@ -502,6 +824,8 @@ class PPOTrainer(BaseRLTrainer):
         tb.add_scalar("Policy/Action_Loss", float(action_loss), step)
         tb.add_scalar("Policy/Entropy", float(entropy), step)
         tb.add_scalar("Policy/Learning_Rate", float(lr_now), step)
+        if sep_losses is None:
+            return
         bin_loss, mono_loss, mem_loss = sep_losses
         tb.add_scalar("Separator/Bin_Loss", float(bin_loss), step)
         tb.add_scalar("Separator/Mono_Loss", float(mono_loss), step)
@@ -510,7 +834,8 @@ class PPOTrainer(BaseRLTrainer):
     @staticmethod
     def _absorb_stats(st, windows, cur_ep):
         """Fold the unpacked (T_total, N) stat stacks into the reference's
-        windowed episode statistics (ppo_trainer.py:426-455)."""
+        windowed episode statistics (ppo_trainer.py:426-455); the host path
+        folds each step as T_total = 1."""
         for t in range(st["q"].shape[0]):
             done = st["done"][t].astype(bool)
             cur_ep["reward"] += st["reward"][t]
@@ -550,8 +875,12 @@ class PPOTrainer(BaseRLTrainer):
     # ------------------------------------------------------------------
     def _eval_checkpoint(self, checkpoint_path: str, checkpoint_index: int = 0):
         """Merge the checkpoint's saved config per EVAL.USE_CKPT_CONFIG
-        (switch-policy eval reads the nav policy's config), then run the
-        batched device evaluator."""
+        (switch-policy eval reads the nav policy's config), then route
+        (rl/trainer.py:1839-1895 of the JAX package): the batched device
+        evaluator when TPU.DEVICE_ENV is set, at least
+        TPU.DEVICE_EVAL_MIN_EPISODES episodes are asked for and the bundle's
+        device banks fit TPU.MAX_DEVICE_BANK_BYTES; the host evaluator
+        otherwise."""
         cfg = self.config
         ckpt = load_checkpoint(checkpoint_path)
         if cfg.RL.PPO.switch_policy:
@@ -563,12 +892,13 @@ class PPOTrainer(BaseRLTrainer):
             config = cfg
         refuse_unported_knobs(config.TPU, training=False)
 
+        # file-backed data resolves against the MERGED eval config: its
+        # DATASET.SPLIT and MONO_DIR may differ from the train config's (the
+        # unheard presets repoint both)
         bundle = self._bundle
         if bundle is None and has_file_backed_data(config.TASK_CONFIG):
-            raise NotImplementedError(
-                "file-backed scene data is not ported yet; the port evaluates "
-                "on the synthetic micro-scene"
-            )
+            bundle = bundle_from_config(config.TASK_CONFIG,
+                                        max_rir_length=config.TPU.MAX_RIR_LENGTH)
         n_eps = config.get("EVAL_EPISODE_COUNT", config.EVAL.EPISODE_COUNT)
         use_device = (
             config.TPU.DEVICE_ENV
@@ -576,20 +906,15 @@ class PPOTrainer(BaseRLTrainer):
         )
         if use_device and bundle is not None:
             use_device = de.estimate_bank_bytes(bundle) <= int(config.TPU.MAX_DEVICE_BANK_BYTES)
-        if not use_device:
-            raise NotImplementedError(
-                "the host evaluator (small episode counts, banks over "
-                "TPU.MAX_DEVICE_BANK_BYTES) is not ported yet"
-            )
+        self._eval_route = "device" if use_device else "host"
+        evaluate = evaluate_checkpoint_device if use_device else evaluate_checkpoint
         timings = {}
-        agg = evaluate_checkpoint_device(
-            config, checkpoint_path, checkpoint_index, bundle=bundle,
-            device=self.device, timings=timings,
-        )
+        agg = evaluate(config, checkpoint_path, checkpoint_index, bundle=bundle,
+                       device=self.device, timings=timings)
         self.last_eval = (agg, timings)
         logger.info(
-            "checkpoint %d: %d episodes, %d env-steps in %.3f s (set-up %.3f s)",
-            checkpoint_index, timings["episodes"], timings["env_steps"],
+            "checkpoint %d (%s evaluator): %d episodes, %d env-steps in %.3f s (set-up %.3f s)",
+            checkpoint_index, self._eval_route, timings["episodes"], timings["env_steps"],
             timings["loop_s"], timings["setup_s"],
         )
         return agg

@@ -1,7 +1,10 @@
 """TensorBoard writer (``common/tensorboard_utils.py``): a SummaryWriter
 wrapper that does nothing when the log dir is empty or when
 ``torch.utils.tensorboard`` cannot be imported (it needs the
-``tensorboard`` package)."""
+``tensorboard`` package), with the reference's video-from-frames helper
+(tensorboard_utils.py:36-62)."""
+
+import numpy as np
 
 
 class TensorboardWriter:
@@ -25,3 +28,14 @@ class TensorboardWriter:
     def __exit__(self, *args):
         if self.writer:
             self.writer.close()
+
+    def add_video_from_np_images(self, video_name: str, step_idx: int, images,
+                                 fps: int = 10) -> None:
+        """images: a list of (H, W, 3) uint8 frames."""
+        if not self.writer:
+            return
+        import torch
+
+        frames = np.stack(images)  # (T, H, W, 3)
+        video = torch.from_numpy(frames.transpose(0, 3, 1, 2)[None])  # (1, T, C, H, W)
+        self.writer.add_video(video_name, video, step_idx, fps=fps)

@@ -131,3 +131,30 @@ def test_masked_mix_slice16_output_carries_a_grad_fn(cuda):
     torch.cuda.synchronize()
     assert kernels.masked_mix_slice16_bwd.launches == before + 1
     assert mix.grad is not None and torch.isfinite(mix.grad).all()
+
+
+@pytest.mark.cuda
+def test_process_vector_env_forks_in_a_process_with_cuda_set_up(cuda):
+    """The host env path forks its env workers after the trainer has set
+    CUDA up: the workers hold numpy only, step as the in-process envs do,
+    and close without touching CUDA."""
+    from move2hear_tpu_torch.env.micro_scene import build_micro_scene
+    from move2hear_tpu_torch.env.vector_env import ProcessVectorEnv, SyncVectorEnv
+
+    x = torch.ones(1 << 20, device=cuda) * 2  # CUDA set up in this process
+    torch.cuda.synchronize()
+    bundle = build_micro_scene(rows=3, cols=3, num_episodes=4, rir_length=400)
+    fns = [bundle.make_env_fn(max_episode_steps=3, seed=i) for i in range(3)]
+    proc, sync = ProcessVectorEnv(fns), SyncVectorEnv(fns)
+    try:
+        for a, b in zip(proc.reset(), sync.reset()):
+            assert sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+        for t in range(7):
+            acts = [t % 3, (t + 1) % 3, (t + 2) % 3]
+            for p, s in zip(proc.step(acts), sync.step(acts)):
+                assert all(np.array_equal(p[0][k], s[0][k]) for k in p[0]) and p[1:] == s[1:]
+    finally:
+        procs = list(proc._procs)
+        proc.close()
+    assert all(p.exitcode == 0 for p in procs)
+    assert float(x.sum()) == 2 * (1 << 20)  # the parent's CUDA context still works

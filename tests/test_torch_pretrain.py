@@ -352,22 +352,9 @@ def test_cli_pretrain_evaluate_and_start_rl_training(tmp_path, monkeypatch):
 @pytest.mark.parametrize("opts,error", [
     (["TPU.COMPUTE_DTYPE", "bfloat16"], NotImplementedError),
     (["TPU.MESH_SHAPE", "[2]"], NotImplementedError),
-    (["FILES"], NotImplementedError),
     (["CUDA"], RuntimeError),
 ])
 def test_pretrain_refuses_the_routes_not_ported(tmp_path, opts, error):
-    if opts == ["FILES"]:
-        # the reference's on-disk layout: datapoints pickles and audio dirs
-        root = tmp_path / "passive"
-        for split in ("train", "val"):
-            (root / "v1" / split).mkdir(parents=True)
-            (root / "v1" / split / "scene.pkl").write_bytes(b"")
-        for d in ("train_audio", "val_audio"):
-            (tmp_path / d).mkdir()
-        a = "TASK_CONFIG.SIMULATOR.AUDIO."
-        opts = [a + "SOURCE_AGENT_LOCATION_DATAPOINTS_DIR", str(root),
-                a + "PASSIVE_TRAIN_AUDIO_DIR", str(tmp_path / "train_audio"),
-                a + "PASSIVE_NONOVERLAPPING_VAL_AUDIO_DIR", str(tmp_path / "val_audio")]
     device = "cpu"
     if opts == ["CUDA"]:
         if torch.cuda.is_available():
@@ -376,3 +363,25 @@ def test_pretrain_refuses_the_routes_not_ported(tmp_path, opts, error):
     cfg = get_config(EXP, opts, str(tmp_path / "run"), "train")
     with pytest.raises(error):
         tpt.PassiveTrainer(cfg, device=device)
+
+
+@pytest.mark.parametrize("case", ["FILES"])
+def test_pretrain_reads_file_backed_data(tmp_path, case):
+    """The reference's on-disk passive layout (datapoint pickles, RIR wavs,
+    class-named audio) is read by FilePassiveSource for every split; one
+    epoch trains on it and writes both best checkpoints."""
+    from move2hear_tpu_torch.env.layout import write_soundspaces_layout
+    from move2hear_tpu_torch.pretrain.dataset import FilePassiveSource
+
+    lay = write_soundspaces_layout(tmp_path / "layout", num_scenes=2, rows=2, cols=2,
+                                   rir_length=400, passive_datapoints=4, splits={})
+    cfg = get_config(EXP, lay["opts"] + ["Pretrain.Passive.NUM_EPOCHS", "1",
+                                         "Pretrain.Passive.BATCH_SIZE", "4"],
+                     str(tmp_path / "run"), "train")
+    trainer = tpt.PassiveTrainer(cfg, device="cpu")
+    assert {k: type(v) for k, v in trainer._sources.items()} == dict.fromkeys(
+        ("train", "val", "nonoverlapping_val"), FilePassiveSource)
+    trainer.train()
+    assert sorted(os.listdir(cfg.CHECKPOINT_FOLDER)) == ["best_ckpt_nonoverlapping_val.pth",
+                                                         "best_ckpt_val.pth"]
+    shutil.rmtree(tmp_path)  # the checkpoints take 0.7 GB

@@ -274,7 +274,7 @@ def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
 
 
 # The JAX package's TPU knobs the port does not honour: each is refused
-# (ROADMAP Queue 1 items 3, 4 and 5), never run as if unset.
+# (ROADMAP Queue 1 items 4 and 5), never run as if unset.
 KNOBS_REFUSED_BY_EVAL = [
     ["TPU.COMPUTE_DTYPE", "bfloat16"],
     ["TPU.SEP_SLAB_DTYPE", "bfloat16"],
@@ -285,10 +285,6 @@ KNOBS_REFUSED_BY_EVAL = [
 
 
 @pytest.mark.parametrize("opts,env", [
-    (["TPU.RIR_MODE", "host"], {}),
-    (["TPU.DEVICE_ENV", "False"], {}),
-    # the dense banks and the sub-bank both over the budget: the host path
-    (["TPU.MAX_DEVICE_BANK_BYTES", "1000"], {}),
     (["TPU.COMPUTE_DTYPE", "bfloat16"], {}),
     ([], {"WORLD_SIZE": "2"}),
     *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL[1:]],
@@ -306,6 +302,28 @@ def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
         PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8, rir_length=400),
                    device="cpu").train()
     assert not os.path.exists(cfg.CHECKPOINT_FOLDER)  # refused before any training
+
+
+@pytest.mark.parametrize("opts", [
+    ["TPU.RIR_MODE", "host"],
+    ["TPU.DEVICE_ENV", "False"],
+    # the dense banks and the sub-bank both over the budget
+    ["TPU.MAX_DEVICE_BANK_BYTES", "1000"],
+], ids=["RIR_MODE_host", "DEVICE_ENV_False", "banks_over_budget"])
+def test_train_takes_the_host_route(tmp_path, opts):
+    """RIR_MODE host and DEVICE_ENV False force the host env path, and
+    under RIR_MODE auto the gate takes it when both bank estimates exceed
+    TPU.MAX_DEVICE_BANK_BYTES; one cycle trains and checkpoints."""
+    cfg = get_config(EXP, _train_opts(2) + ["USE_SYNC_VECENV", "True"] + opts, str(tmp_path),
+                     "train")
+    trainer = PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8,
+                                                       rir_length=400), device="cpu")
+    trainer.train()
+    assert trainer._rir_mode == "host" and len(trainer.cycle_log) == 1
+    pol, sep = trainer.loss_log[0]
+    assert np.isfinite(pol).all() and np.isfinite(sep).all()
+    assert os.path.exists(os.path.join(cfg.CHECKPOINT_FOLDER, "ckpt.1.pth"))
+    shutil.rmtree(cfg.CHECKPOINT_FOLDER)  # 0.4 GB
 
 
 @pytest.mark.parametrize("opts,rows", [
