@@ -93,7 +93,22 @@ Phases, each printing its own line(s) with its seconds:
      against the device evaluator on the 16 episodes of two fixture scenes,
      per episode equal actions, per-step STFT-L2 within HOST_PARITY_L2_TOL
      and SI-SDR within HOST_PARITY_SI_TOL above -40 dB;
-  9. train-parity: one PPO update and one separator refit on one injected
+  8i. ddppo: 2 ranks of ``--run-type train`` (configs/train/nearTarget.yaml,
+     7 envs each, phase 8's cycle, gloo) as subprocesses on the one card,
+     2 cycles from phase 6's separators: each rank's set-up, warm
+     env-steps/s, seconds in collectives and peak device memory, the world's
+     rate; both ranks' final parameters bitwise equal, each rank's launch
+     counters equal to DDPPO_TRAIN_LAUNCHES. ddppo-parity (TF32 off): 2 x 7
+     against 1 x 14, losses within TRAIN_TOL (relative, or absolute over
+     1e-2 below it) after one update and refit and after a whole cycle;
+     every parameter change within TRAIN_DP_TOL in norm after the one
+     update and refit (phase 9's scope; the whole cycle's are printed).
+     ddppo-sync: one cycle with short_rollout_threshold 0.5 on the real
+     TCPStore: equal executed steps and parameters on both ranks.
+     ddppo-preempt: SIGUSR2 to both ranks once their handlers are set; both
+     exit 0 after cycle 1 with the interrupted state saved at update 6, a
+     relaunch resumes there, ends at update 12 and removes the state;
+ 9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
      parameter tensor's change within TRAIN_DP_TOL in norm of a float64 run
@@ -120,6 +135,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -195,6 +211,13 @@ PRETRAIN_EPOCHS = 3
 PRETRAIN_LAUNCHES = {"masked_mix_slice16": 18, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
 # pretrain-eval: its 2 best checkpoints x 2 validation batches of 64.
 PRETRAIN_EVAL_LAUNCHES = {"masked_mix_slice16": 4, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+# phase 8i: 2 ranks x 7 envs on the one card over gloo, phase 8's cycle;
+# each rank launches phase 8's count: 2 cycles x 6 updates x (20 collect
+# steps x 2 at B=7 + 2 for the bootstrap forward + 4 PPO epochs x 1 bin
+# encoder at B=140) = 552.
+DDPPO_TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
+DDPPO_RANKS = 2
+DDPPO_OPTS = ["NUM_PROCESSES", "7", "RL.PPO.ddppo_distrib_backend", "GLOO"]
 # Shapes each kernel is held to on the card. The first is the eval path's
 # (one launch per separator call at 16 envs; the step's five ISTFTs of 16
 # envs in one trimmed overlap-add); masked_mix_slice16's "train" is the PPO
@@ -208,6 +231,8 @@ MM_CASES = {
     "train": (280, 512, 32, 2, 0),
     "pretrain": (64, 512, 32, 2, 0),
     "collect": (14, 512, 32, 2, 0),
+    "ddppo-collect": (7, 512, 32, 2, 0),
+    "ddppo-train": (140, 512, 32, 2, 0),
     "B=1": (1, 512, 32, 2, 0),
     "C=1": (2, 512, 32, 1, 0),
     "C=3": (2, 64, 8, 3, 0),
@@ -427,6 +452,12 @@ def time_phase(torch, kernels, errs):
         ("masked_mix_slice16", "collect", kernels.masked_mix_slice16,
          kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["collect"]),
          mm_work(MM_CASES["collect"])),
+        ("masked_mix_slice16", "ddppo-collect", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["ddppo-collect"]),
+         mm_work(MM_CASES["ddppo-collect"])),
+        ("masked_mix_slice16", "ddppo-train", kernels.masked_mix_slice16,
+         kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["ddppo-train"]),
+         mm_work(MM_CASES["ddppo-train"])),
         ("masked_mix_slice16", "B=1", kernels.masked_mix_slice16,
          kernels.masked_mix_slice16_plain, mm_inputs(torch, MM_CASES["B=1"]),
          mm_work(MM_CASES["B=1"])),
@@ -1734,6 +1765,208 @@ def parity_phase(torch, switch=False, devices=("cuda", "cpu"), n_envs=8, hid=512
     ))
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(run_dir, tag, opts, device="cuda:0", env=None, ranks=DDPPO_RANKS):
+    """`ranks` processes of the train CLI with configs/train/nearTarget.yaml
+    in run_dir/tag, a gloo world on the loopback; each writes its report to
+    run_dir/tag/report{rank}.json. Returns (Popens, report paths)."""
+    out = os.path.join(run_dir, tag)
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    procs, reports = [], []
+    for r in range(ranks):
+        e = {**os.environ, "PYTHONPATH": os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]),
+             "RANK": str(r), "LOCAL_RANK": str(r),
+             "WORLD_SIZE": str(ranks), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             **(env or {})}
+        reports.append(os.path.join(out, f"report{r}.json"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "move2hear_tpu_torch.main", "--run-type", "train",
+             "--exp-config", TRAIN_EXP, "--model-dir", out, "--device", device,
+             "--report", reports[-1], *TRAIN_OPTS, *DDPPO_OPTS, *opts],
+            cwd=REPO, env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, reports
+
+
+def wait_ranks(label, procs, reports, timeout=600):
+    """Each rank's report, after every rank exited 0; a rank that fails or
+    outlives `timeout` fails the phase (all ranks are stopped)."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail(f"{label}: a rank outlived {timeout} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{label}: rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    result = []
+    for path in reports:
+        with open(path) as f:
+            result.append(json.load(f))
+    return result, outs
+
+
+def ddppo_phase(torch, card, run_dir, pretrained, device="cuda:0", opts=(),
+                launches=DDPPO_TRAIN_LAUNCHES):
+    """Phase 8i: DDPPO, 2 ranks of the train CLI on the one card over gloo
+    (subprocesses with RANK and WORLD_SIZE), 7 envs each (phase 8's 14 in
+    all), from phase 6's separators. (`device`, `opts` and `launches` let a
+    rehearsal run it small on the CPU.) Returns the world's launch counts."""
+    import numpy as np
+
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+    from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+
+    pre = ["RL.PPO.pretrained_passive_separators_ckpt", pretrained, *opts]
+    states = os.path.join(run_dir, "interrupted")
+    env = {"INTERRUPTED_STATE_DIR": states}
+
+    # the 2-rank run: 2 cycles
+    t0 = time.perf_counter()
+    procs, reports = launch_ranks(run_dir, "world", pre, device, env)
+    ranks, _ = wait_ranks("ddppo", procs, reports)
+    wall = time.perf_counter() - t0
+    for r, rep in enumerate(ranks):
+        if rep["launches"] != launches:
+            fail(f"ddppo rank {r}: kernel launches {rep['launches']}, expected {launches}")
+        if len(rep["cycle_log"]) != 2:
+            fail(f"ddppo rank {r} ran {len(rep['cycle_log'])} cycles, expected 2")
+        for i, (pol, sep) in enumerate(rep["loss_log"]):
+            if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
+                fail(f"ddppo rank {r} cycle {i}: losses not finite")
+    if ranks[0]["params_sha256"] != ranks[1]["params_sha256"]:
+        fail("ddppo: the ranks' final parameters differ")
+    warm = [rep["cycle_log"][1] for rep in ranks]
+    rates = [c["env_steps"] / c["total"] for c in warm]
+    for r, (rep, c) in enumerate(zip(ranks, warm)):
+        mem = rep["max_memory_allocated"]
+        phase("ddppo", t0, (
+            f"rank {r} on {rep['device']} (gloo): set-up {rep['setup_s']:.3f} s; warm cycle "
+            f"{c['env_steps']} env-steps in {c['total']:.3f} s = {rates[r]:.1f} env-steps/s; "
+            f"collect {c['collect']:.3f} s, policy update {c['update']:.3f} s, refit "
+            f"{c['refit']:.3f} s; collectives {c['comm_s']:.3f} s in {c['comm_calls']} calls; "
+            f"peak device memory "
+            + (f"{mem / 2**30:.2f} GiB" if mem is not None else "not measured") + f" ({card})"
+        ))
+    print(f"ddppo: backend gloo, {len(ranks)} ranks x 7 envs on one card; world warm "
+          f"{sum(rates):.1f} env-steps/s; end to end "
+          f"{sum(c['env_steps'] for rep in ranks for c in rep['cycle_log']) / wall:.1f} "
+          f"env-steps/s over {wall:.3f} s (launch included); final parameters bitwise equal "
+          f"(sha256 {ranks[0]['params_sha256'][:16]}); per-rank launches {ranks[0]['launches']}",
+          flush=True)
+
+    # ddppo-parity (TF32 off), beside the sync run: one update and refit
+    # (phase 9's scope, where TRAIN_DP_TOL is set), and a whole cycle
+    t0 = time.perf_counter()
+    tf32_off = {**env, "NVIDIA_TF32_OVERRIDE": "0"}
+    scopes = {"update": ["NUM_UPDATES", "1", "RL.PPO.num_updates_per_cycle", "1"],
+              "cycle": ["NUM_UPDATES", "6"]}
+    runs = {}
+    for scope, upd in scopes.items():
+        runs[scope] = (
+            launch_ranks(run_dir, f"parity_world_{scope}", [*pre, *upd], device, tf32_off),
+            launch_ranks(run_dir, f"parity_single_{scope}", [*pre, *upd, "NUM_PROCESSES", "14"],
+                         device, tf32_off, ranks=1),
+        )
+    y_procs, y_reports = launch_ranks(run_dir, "sync", [
+        *pre, "NUM_UPDATES", "6", "RL.PPO.short_rollout_threshold", "0.5",
+        "RL.PPO.sync_frac", "0.5"], device, env)
+    cfg = get_config(TRAIN_EXP, [*TRAIN_OPTS, *pre], os.path.join(run_dir, "init"), "train")
+    start = {k: v.numpy() for k, v in PPOTrainer(cfg, device="cpu")._new_policy().state_dict().items()}
+    readings = {}
+    for scope, ((w_procs, w_reports), (s_procs, s_reports)) in runs.items():
+        world, _ = wait_ranks("ddppo-parity", w_procs, w_reports)
+        (single,), _ = wait_ranks("ddppo-parity", s_procs, s_reports)
+        ours, ref = (load_checkpoint(os.path.join(run_dir, f"parity_{kind}_{scope}", "data",
+                                                  "ckpt.1.pth"))["state_dict"]
+                     for kind in ("world", "single"))
+        la, lb = (np.concatenate([np.ravel(x) for x in rep["loss_log"][0]])
+                  for rep in (world[0], single))
+        # relative, but for a loss below 1e-2 (the action loss of an epoch
+        # starts at the mean of normalised advantages, 0 but for rounding)
+        loss = float(np.max(np.abs(la - lb) / np.maximum(np.abs(lb), 1e-2)))
+        dp = {k: float(np.linalg.norm(ours[k].numpy() - b.numpy())
+                       / np.linalg.norm(b.numpy() - start[k]))
+              for k, b in ref.items() if b.is_floating_point() and "running_" not in k
+              and not np.array_equal(b.numpy(), start[k])}
+        readings[scope] = (loss, sorted(dp.items(), key=lambda kv: -kv[1])[:3], len(dp))
+    sync, _ = wait_ranks("ddppo-sync", y_procs, y_reports)
+    for scope, (loss, top, _) in readings.items():
+        if not loss <= TRAIN_TOL:
+            fail(f"ddppo-parity ({scope}): losses of 2 x 7 against 1 x 14 differ by {loss} "
+                 f"relative (tol {TRAIN_TOL})")
+    loss, top, n = readings["update"]
+    if not top[0][1] <= TRAIN_DP_TOL:
+        fail(f"ddppo-parity: parameter change of {top[0][0]} after one update and refit "
+             f"differs by {top[0][1]} relative in norm (tol {TRAIN_DP_TOL})")
+    c_loss, c_top, c_n = readings["cycle"]
+    phase("ddppo-parity", t0, (
+        f"TF32 off, 2 ranks x 7 envs against 1 rank x 14 (losses relative, below 1e-2 "
+        f"absolute over 1e-2, tol {TRAIN_TOL}): one update and refit, losses within "
+        f"{loss:.3e}, parameter change of {n} tensors within "
+        + ", ".join(f"{v:.3e} ({k})" for k, v in top) + f" in norm (tol {TRAIN_DP_TOL}); "
+        f"the whole cycle (6 updates and refits), losses within {c_loss:.3e}, parameter "
+        f"change of {c_n} tensors within " + ", ".join(f"{v:.3e} ({k})" for k, v in c_top)
+        + " in norm (not gated: the parts compound through 48 Adam steps and 5 collects)"
+    ))
+    fills = [rep["sep_fill"] for rep in sync]
+    if fills[0] != fills[1] or sync[0]["params_sha256"] != sync[1]["params_sha256"]:
+        fail(f"ddppo-sync: the ranks executed {fills} refit rows, parameters "
+             f"{'equal' if sync[0]['params_sha256'] == sync[1]['params_sha256'] else 'unequal'}")
+    phase("ddppo-sync", t0, (
+        f"short_rollout_threshold 0.5, sync_frac 0.5, TCPStore on MASTER_PORT + 1: both ranks "
+        f"executed {fills[0]} of {cfg.RL.PPO.num_steps * cfg.RL.PPO.num_updates_per_cycle} "
+        f"steps of the cycle; parameters bitwise equal"
+    ))
+
+    # preemption: SIGUSR2 to both ranks once their handlers are set, so the
+    # first cycle's end saves; the relaunch resumes at update 6
+    t0 = time.perf_counter()
+    procs, reports = launch_ranks(run_dir, "preempt", pre, device, env)
+    for r, p in enumerate(procs):
+        for line in p.stdout:
+            if "signal handlers set" in line:
+                break
+        else:
+            fail(f"ddppo-preempt: rank {r} ended before it set its signal handlers")
+    for p in procs:
+        p.send_signal(signal.SIGUSR2)
+    cut, _ = wait_ranks("ddppo-preempt", procs, reports)
+    saved = os.listdir(states) if os.path.isdir(states) else []
+    if [len(rep["cycle_log"]) for rep in cut] != [1, 1] or len(saved) != 1:
+        fail(f"ddppo-preempt: cycles {[len(rep['cycle_log']) for rep in cut]}, states {saved}")
+    snap = load_checkpoint(os.path.join(states, saved[0]))
+    at = snap["extra_state"]["update_count"]
+    procs, reports = launch_ranks(run_dir, "preempt", pre, device, env)
+    done, outs = wait_ranks("ddppo-resume", procs, reports)
+    if not all(f"resumed the interrupted train state at update {at}" in o for o in outs):
+        fail("ddppo-resume: a rank did not resume the interrupted state")
+    last = load_checkpoint(os.path.join(run_dir, "preempt", "data", "ckpt.1.pth"))
+    if at != 6 or last["extra_state"]["update_count"] != 12 or os.listdir(states):
+        fail(f"ddppo-resume: saved at update {at}, ended at "
+             f"{last['extra_state']['update_count']}, states left {os.listdir(states)}")
+    if done[0]["params_sha256"] != done[1]["params_sha256"]:
+        fail("ddppo-resume: the ranks' final parameters differ")
+    phase("ddppo-preempt", t0, (
+        f"SIGUSR2 to both ranks: both exited 0 after cycle 1, rank 0 saved the interrupted "
+        f"state at update {at} ({os.path.getsize(os.path.join(run_dir, 'preempt', 'data', 'ckpt.1.pth')) / 1e6:.1f} MB "
+        f"checkpoint); the relaunch resumed at update {at}, finished cycle 2 at update 12, "
+        f"and removed the state"
+    ))
+    return {k: sum(rep["launches"][k] for rep in ranks) for k in launches}
+
+
 def host_phases(torch, kernels, card, run_dir, pretrained, switch_ckpt):
     """Phases 8e-8h in the run directory; the fixture is removed after them.
     Returns the host paths' launch counts by path."""
@@ -1818,6 +2051,7 @@ def main():
         scale_parity_phase(torch, os.path.join(run_dir, "scale_parity"))
         host_launches = host_phases(torch, kernels, card, run_dir, pretrained,
                                     os.path.join(run_dir, "switch.pth"))
+        ddppo_launches = ddppo_phase(torch, card, os.path.join(run_dir, "ddppo"), pretrained)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)
@@ -1825,7 +2059,8 @@ def main():
 
     by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
                "pretrain_eval": pre_eval_launches, "far_train": far_train_launches,
-               "far_eval": far_eval_launches, "scale_train": scale_launches, **host_launches}
+               "far_eval": far_eval_launches, "scale_train": scale_launches, **host_launches,
+               "ddppo_train": ddppo_launches}
     for name, row in rows.items():
         # the launches of every path's runs
         row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}

@@ -91,7 +91,7 @@ def default_config() -> Config:
     ppo.extra_reward_multiplier = 10.0
     ppo.deterministic_eval = False
     ppo.use_ddppo = False
-    ppo.ddppo_distrib_backend = "ICI"  # reference: NCCL/GLOO; here ICI mesh
+    ppo.ddppo_distrib_backend = "NCCL"  # or GLOO (parallel/ddppo.py)
     ppo.short_rollout_threshold = 0.25
     ppo.sync_frac = 0.6
     ppo.master_port = 8738

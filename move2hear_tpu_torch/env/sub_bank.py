@@ -414,3 +414,9 @@ class RirSubBank:
 
     def advance(self, t_steps: int) -> None:
         self._occ.advance(t_steps)
+
+    def restore(self, cursor: np.ndarray, step: np.ndarray) -> None:
+        """Set the episode mirror to a resumed device env's cursors and
+        episode step counts."""
+        self._occ.cursor = np.asarray(cursor, np.int64).copy()
+        self._occ.step = np.asarray(step, np.int64).copy()

@@ -4,7 +4,7 @@ linear layers with orthogonal weights and zero bias: gain 0.01 for the
 action logits, so the initial policy is close to uniform, and 1 for the
 critic."""
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,9 +21,23 @@ class Categorical:
     def probs(self) -> torch.Tensor:
         return torch.softmax(self.logits, dim=-1)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, 1) actions drawn with `generator` (on the logits' device)."""
-        return torch.multinomial(self.probs(), 1, generator=generator)
+    def sample(self, generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """(B, 1) actions drawn with `generator` (on the logits' device) by
+        inverse CDF. `rows` (start, total): this batch is rows [start, start
+        + B) of a global batch of `total` rows; the uniforms of all `total`
+        rows are drawn and this batch's are taken, so every rank of a world
+        (one generator, seeded alike) draws its own rows of the one global
+        draw, and 2 ranks x N envs sample what 1 rank x 2N envs samples.
+        None is (0, B)."""
+        probs = self.probs()
+        b = probs.shape[0]
+        start, total = (0, b) if rows is None else rows
+        u = torch.rand((total, 1), generator=generator, device=probs.device,
+                       dtype=probs.dtype)[start: start + b]
+        cdf = torch.cumsum(probs, dim=-1)
+        # the last bin takes what the rounded cdf leaves below 1
+        return torch.searchsorted(cdf, u, right=True).clamp_(max=probs.shape[-1] - 1)
 
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1, keepdim=True)  # (B, 1)

@@ -12,7 +12,7 @@ and the frozen passive separators. ``evaluate_actions`` does not detach:
 its inputs are rollout storage.
 """
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -161,9 +161,11 @@ class Move2HearPolicy(nn.Module):
         generator: Optional[torch.Generator] = None,
         deterministic: bool = False,
         sampler: Optional[Callable[[Categorical], torch.Tensor]] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ) -> ActOutput:
         """`sampler`, if given, draws the (B, 1) actions from the
-        distribution in place of ``dist.sample(generator)``."""
+        distribution in place of ``dist.sample(generator, rows)`` (`rows`:
+        this batch's rows of the world's global env batch)."""
         feats, new_hidden = self._pol_features(
             observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
         )
@@ -174,7 +176,7 @@ class Move2HearPolicy(nn.Module):
         elif sampler is not None:
             action = sampler(dist)
         else:
-            action = dist.sample(generator)
+            action = dist.sample(generator, rows)
         return ActOutput(
             value=value,
             action=action,
@@ -191,11 +193,11 @@ class Move2HearPolicy(nn.Module):
         return self.critic(feats)
 
     def evaluate_actions(self, observations, hidden, masks, action, pred_binSepMasks,
-                         pred_mono, pred_monoFromMem):
+                         pred_mono, pred_monoFromMem, per_step_entropy: bool = False):
         """Sequence evaluation for the PPO update: observation values
         (T, N, ...), hidden (N, H), masks (T, N, 1), action (T, N, 1).
-        Returns (values (T, N, 1), log-probs (T, N, 1), mean entropy, final
-        hidden)."""
+        Returns (values (T, N, 1), log-probs (T, N, 1), mean entropy, or the
+        (T, N) entropies when `per_step_entropy`, final hidden)."""
         t, n = masks.shape[0], masks.shape[1]
         feats, new_hidden = self.pol_net.seq(
             observations, hidden, masks, pred_binSepMasks, pred_mono, pred_monoFromMem
@@ -204,7 +206,9 @@ class Move2HearPolicy(nn.Module):
         dist: Categorical = self.action_dist(feats_flat)
         values = self.critic(feats_flat).reshape(t, n, 1)
         log_probs = dist.log_probs(action.reshape(t * n, 1)).reshape(t, n, 1)
-        return values, log_probs, dist.entropy().mean(), new_hidden
+        entropy = dist.entropy()
+        entropy = entropy.reshape(t, n) if per_step_entropy else entropy.mean()
+        return values, log_probs, entropy, new_hidden
 
 
 class Move2HearPassiveWoMemoryPolicy(nn.Module):

@@ -29,6 +29,7 @@ from torch.nn import functional as F
 
 from move2hear_tpu_torch.ops.kernels import masked_mix_slice16
 from move2hear_tpu_torch.ops.spec import SLICE_FACTOR, deslice16_nchw, slice16_nchw
+from move2hear_tpu_torch.parallel.dist import all_reduce_, world_size
 
 ENC_CHANNELS = (64, 128, 256, 512, 512)
 
@@ -79,7 +80,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     the biased batch variance, but ``nn.BatchNorm2d`` moves ``running_var``
     towards the unbiased one (n / (n - 1) times larger, 64/63 at the
     bottleneck of a 64-sample batch); flax, and this module, towards the
-    biased one. Eval mode is ``nn.BatchNorm2d``'s."""
+    biased one. Eval mode is ``nn.BatchNorm2d``'s.
+
+    In training mode in a world of ranks (``parallel/dist.py``) the
+    statistics are the global batch's, as XLA computes them over a sharded
+    batch: the count, the sum and the sum of squares are summed over the
+    world, and their gradients too in the backward."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -87,6 +93,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if world_size() > 1:
+            return self._world_forward(x)
         var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
             m = self.momentum
@@ -94,6 +102,36 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _world_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), dtype=x.dtype, device=x.device)
+        sums = _WorldSum.apply(torch.cat([count, x.sum(dim=(0, 2, 3)),
+                                          torch.square(x).sum(dim=(0, 2, 3))]))
+        mean = sums[1: 1 + c] / sums[0]
+        # flax's fast variance, E[x^2] - E[x]^2, as XLA computes it sharded
+        var = torch.clamp(sums[1 + c:] / sums[0] - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        shape = (1, c, 1, 1)
+        return ((x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + self.eps)
+                * self.weight.reshape(shape) + self.bias.reshape(shape))
+
+
+class _WorldSum(torch.autograd.Function):
+    """A sum over the world whose backward sums the gradients over it: each
+    rank's loss reads the global statistics."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return all_reduce_(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone())
 
 
 class PassiveSepEncoder(nn.Module):

@@ -23,9 +23,18 @@ pretrained_passive_separators_ckpt`` reads.
 The data comes from the reference's on-disk datasets when
 ``SIMULATOR.AUDIO.*`` points at them (``_file_sources``), else from the
 synthetic sources. Not ported yet: ``TPU.COMPUTE_DTYPE`` bfloat16 (ROADMAP
-Queue 1 item 5), refused; data-parallel sharding over ``TPU.MESH_SHAPE``
-(refused for more than one device) and the interrupted-state save, resume
-and requeue (item 4).
+Queue 1 item 5), refused.
+
+In a world of ranks (``parallel/ddppo.py``, one device each; a
+``TPU.MESH_SHAPE`` above one device is refused) every rank draws the same
+global batch of BATCH_SIZE and takes its BATCH_SIZE / world rows: its loss
+is its share of the global mean, the gradients and the BatchNorm batch
+statistics are summed over the world (``models/unet.py:BatchNorm2d``), and
+each validation batch is split and its losses summed alike, so R ranks
+train what one rank does on the whole batch; rank 0 writes the checkpoints.
+A preemption signal saves the interrupted state at the epoch's end (the
+train state, the batch generator and the best validation losses), which
+the next launch of the experiment resumes, and requeues the job.
 """
 
 import json
@@ -40,6 +49,18 @@ import torch
 from move2hear_tpu_torch.models.policy import Move2HearPassiveWoMemoryPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
 from move2hear_tpu_torch.ops.spec import masked_mix
+from move2hear_tpu_torch.parallel.ddppo import (
+    EXIT,
+    load_interrupted_state,
+    requeue_job,
+    save_interrupted_state,
+)
+from move2hear_tpu_torch.parallel.dist import (
+    all_reduce_,
+    broadcast_module,
+    collective_any,
+    world,
+)
 from move2hear_tpu_torch.pretrain.dataset import (
     FilePassiveSource,
     PassiveDataSource,
@@ -113,13 +134,18 @@ class PassiveTrainer(BaseRLTrainer):
             )
         if any(int(d) > 1 for d in config.TPU.get("MESH_SHAPE", [1])):
             raise NotImplementedError(
-                "data-parallel pretraining over TPU.MESH_SHAPE is not ported yet "
-                "(ROADMAP Queue 1 item 4); the port pretrains on one device"
+                f"TPU.MESH_SHAPE={list(config.TPU.MESH_SHAPE)}: each rank of the port "
+                "pretrains on one device; its data parallelism is one rank per device, "
+                "launched as a world through WORLD_SIZE (torchrun)"
             )
         p = config.Pretrain.Passive
         self._lr, self._eps, self._max_grad_norm = p.lr, p.eps, p.max_grad_norm
         self._num_epochs = p.NUM_EPOCHS
         self._batch_size = p.BATCH_SIZE
+        self._rank, self._ranks = world()
+        if self._batch_size % self._ranks:
+            raise ValueError(f"Pretrain.Passive.BATCH_SIZE {self._batch_size} is not divisible "
+                             f"by the world's {self._ranks} ranks")
         self._gt_mono_mag_norm = config.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM
         self._sources = sources or self._default_sources()
         self._steps_per_epoch = max(1, len(self._sources["train"]) // self._batch_size)
@@ -166,8 +192,12 @@ class PassiveTrainer(BaseRLTrainer):
         return ClippedAdam(list(policy.parameters()), self._max_grad_norm, self._eps)
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A numpy batch on the trainer's device; to a card through pinned
-        memory, so the copy does not wait for the queued steps."""
+        """This rank's rows of a numpy batch on the trainer's device; to a
+        card through pinned memory, so the copy does not wait for the
+        queued steps."""
+        if self._ranks > 1:
+            b = len(next(iter(batch.values()))) // self._ranks
+            batch = {k: v[self._rank * b: (self._rank + 1) * b] for k, v in batch.items()}
         if self.device.type == "cpu":
             return {k: torch.from_numpy(v) for k, v in batch.items()}
         return {k: torch.from_numpy(v).pin_memory().to(self.device, non_blocking=True)
@@ -205,19 +235,20 @@ class PassiveTrainer(BaseRLTrainer):
 
     def train_step(self, policy, opt: ClippedAdam, inputs, loss=None) -> torch.Tensor:
         """One optimizer step in training mode on rendered inputs; returns
-        the detached (bin, mono) losses."""
+        the detached (bin, mono) losses (of the world's batch)."""
         policy.train()
         opt.zero_grad()
-        losses = self.losses(policy, inputs, loss)
+        # this rank's share of the world's means (each rank holds as many rows)
+        losses = self.losses(policy, inputs, loss) / self._ranks
         losses.sum().backward()
-        opt.step(self._lr)
-        return losses.detach()
+        return opt.step(self._lr, extra=losses.detach())
 
     @torch.no_grad()
     def eval_step(self, policy, inputs, loss=None) -> torch.Tensor:
-        """(bin, mono) losses of rendered inputs on the running statistics."""
+        """(bin, mono) losses of rendered inputs on the running statistics
+        (of the world's batch)."""
         policy.eval()
-        return self.losses(policy, inputs, loss)
+        return all_reduce_(self.losses(policy, inputs, loss) / self._ranks)
 
     def _val_losses(self, policy, split: str, rng) -> Tuple[float, float]:
         """Mean (bin, mono) losses over a validation split's deterministic
@@ -235,22 +266,42 @@ class PassiveTrainer(BaseRLTrainer):
     def train(self) -> None:
         """NUM_EPOCHS epochs; per epoch ``self.epoch_log`` gets the wall
         seconds of its train steps and validation (the losses' fetch at their
-        end waits for the device), its train samples and the seconds of its
-        checkpoint writes, and ``self._val_history`` its losses."""
+        end waits for the device), its train samples (this rank's) and the
+        seconds of its checkpoint writes, and ``self._val_history`` its
+        losses."""
         cfg = self.config
         t_setup = time.perf_counter()
         rng = np.random.default_rng(cfg.SEED)
         policy = self.new_policy()
         opt = self.new_optimizer(policy)
         best = dict.fromkeys(VAL_SPLITS, np.inf)
+        start_epoch = 0
+        snap = load_interrupted_state(cfg.JOB_ID, self._interrupt_scope())
+        if snap is not None and set(snap.get("state_dict", {})) != set(policy.state_dict()):
+            logger.warning("ignoring interrupted state of another model")
+            snap = None
+        if collective_any(snap is not None) and collective_any(snap is None):
+            raise RuntimeError("the interrupted state was read on some ranks only: "
+                               "INTERRUPTED_STATE_DIR must be one every rank sees")
+        if snap is not None:
+            policy.load_state_dict(snap["state_dict"])
+            opt.load_state_dict(snap["optimizer"])
+            extra = snap["extra_state"]
+            start_epoch = int(extra["epoch"]) + 1
+            rng.bit_generator.state = json.loads(extra["rng"])
+            best = dict(extra["best"])
+            logger.info("resumed the interrupted pretrain at epoch %d", start_epoch)
+        broadcast_module(policy)
         self._val_history, self.epoch_log = [], []
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
-        tb = TensorboardWriter(cfg.TENSORBOARD_DIR, flush_secs=30)
+        is_rank0 = self._rank == 0
+        tb = TensorboardWriter(cfg.TENSORBOARD_DIR if is_rank0 else "", flush_secs=30)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.setup_s = time.perf_counter() - t_setup
 
-        for epoch in range(self._num_epochs):
+        stop = False
+        for epoch in range(start_epoch, self._num_epochs):
             t0 = time.perf_counter()
             step_losses = [
                 self.train_step(policy, opt, self.render(self.to_device(
@@ -259,8 +310,9 @@ class PassiveTrainer(BaseRLTrainer):
             ]
             tr_bin, tr_mono = (float(v) for v in torch.stack(step_losses).cpu().numpy().mean(axis=0))
             val_losses = {split: self._val_losses(policy, split, rng) for split in VAL_SPLITS}
-            self.epoch_log.append({"seconds": time.perf_counter() - t0,
-                                   "train_samples": self._steps_per_epoch * self._batch_size})
+            self.epoch_log.append({
+                "seconds": time.perf_counter() - t0,
+                "train_samples": self._steps_per_epoch * self._batch_size // self._ranks})
             logger.info(
                 "epoch %d: train bin %.4f mono %.4f | val mono %.4f | nonoverlap val mono "
                 "%.4f | %.1fs", epoch, tr_bin, tr_mono, val_losses["val"][1],
@@ -278,10 +330,28 @@ class PassiveTrainer(BaseRLTrainer):
             for split in VAL_SPLITS:
                 if val_losses[split][1] < best[split]:
                     best[split] = val_losses[split][1]
-                    self._save(os.path.join(cfg.CHECKPOINT_FOLDER, BEST_CKPT[split]),
-                               policy, opt, epoch)
+                    if is_rank0:
+                        self._save(os.path.join(cfg.CHECKPOINT_FOLDER, BEST_CKPT[split]),
+                                   policy, opt, epoch)
             self.epoch_log[-1]["save_seconds"] = time.perf_counter() - t_save
+            # the ranks agree on EXIT: a signal may reach one rank only
+            if collective_any(EXIT.is_set()):
+                EXIT.set()
+                if is_rank0:
+                    save_interrupted_state({
+                        "state_dict": policy.state_dict(), "optimizer": opt.state_dict(),
+                        "extra_state": {"epoch": epoch, "best": best,
+                                        "rng": json.dumps(rng.bit_generator.state)},
+                        "config": cfg.to_dict(),
+                    }, cfg.JOB_ID, scope=self._interrupt_scope())
+                    logger.info("preempted after epoch %d: interrupted state saved", epoch)
+                    requeue_job()
+                stop = True
+                break
         tb.close()
+        self.final_policy = policy
+        if not stop:
+            self._clear_interrupted_state()
 
     def _save(self, path, policy, opt, epoch):
         save_checkpoint(path, {

@@ -5,6 +5,7 @@ import logging
 import os
 import time
 
+from move2hear_tpu_torch.parallel.ddppo import clear_interrupted_state
 from move2hear_tpu_torch.utils.config_tree import Config
 from move2hear_tpu_torch.utils.misc import poll_checkpoint_folder
 
@@ -37,6 +38,17 @@ class BaseRLTrainer:
 
     def _eval_checkpoint(self, checkpoint_path: str, checkpoint_index: int = 0) -> None:
         raise NotImplementedError
+
+    def _interrupt_scope(self) -> str:
+        """Keys the preemption snapshot to this experiment (trainer kind and
+        checkpoint folder), the JAX package's scope string, so runs sharing
+        the default JOB_ID do not adopt each other's state."""
+        return f"{type(self).__name__}:{self.config.CHECKPOINT_FOLDER}"
+
+    def _clear_interrupted_state(self) -> None:
+        """Remove this experiment's snapshot after a run that ended normally
+        (nothing after a preemption signal, or on a rank other than 0)."""
+        clear_interrupted_state(self.config.JOB_ID, self._interrupt_scope())
 
     @staticmethod
     def _setup_eval_config(checkpoint_config, eval_config):

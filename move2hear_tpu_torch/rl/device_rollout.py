@@ -38,8 +38,9 @@ from move2hear_tpu_torch.models.distributions import Categorical
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture_pre
 from move2hear_tpu_torch.ops.spec import slice16_nchw
+from move2hear_tpu_torch.parallel.dist import all_reduce_, world
 from move2hear_tpu_torch.rl.gae import compute_returns
-from move2hear_tpu_torch.rl.ppo import AgentState, PPOConfig, _epoch_perms
+from move2hear_tpu_torch.rl.ppo import AgentState, PPOConfig, _epoch_perms, _rank_members
 
 
 @dataclass
@@ -169,6 +170,7 @@ def make_collect(
     sampler: Optional[Callable[[Categorical, int], torch.Tensor]] = None,
     sep_rewards: bool = True,
     nav_reward_scale: float = 0.0,
+    sample_rows: Optional[Tuple[int, int]] = None,
 ):
     """The rollout collector:
     ``collect(dev, env_state, hidden, masks, prev_mem_masked, generator)``
@@ -180,8 +182,9 @@ def make_collect(
     both tasks.
 
     `sampler(dist, t)` draws the (N, 1) actions of step t; by default
-    ``dist.sample(generator)``. A test passes one that replays the actions
-    of another run.
+    ``dist.sample(generator, sample_rows)``, `sample_rows` (start, total)
+    naming this rank's envs among the world's (``models/distributions.py``).
+    A test passes one that replays the actions of another run.
 
     pose_obs: store an integer ``pose`` index in the rollout observations in
     place of the rgb/depth frames (needs the per-rollout visual-feature bank;
@@ -195,12 +198,14 @@ def make_collect(
 
         # per-rollout visual-feature bank: the parameters do not change
         # within the rollout, so the visual conv stack runs once over the
-        # S*V*4 distinct poses when they are no more than the N*T steps
+        # S*V*4 distinct poses when they are no more than the N*T steps (or
+        # the update reads poses: a segment of a rollout split by the
+        # preemptive sync has fewer steps)
         vis_bank = None
         frame_bank = dev.rgb_bank if dev.rgb_bank is not None else dev.depth_bank
         if frame_bank is not None and policy.pol_net.visual_encoder is not None:
             s, v = frame_bank.shape[0], frame_bank.shape[1]
-            if s * v * 4 <= masks.shape[0] * t_steps:
+            if pose_obs or s * v * 4 <= masks.shape[0] * t_steps:
                 def flat(b):
                     return None if b is None else b.reshape((-1,) + tuple(b.shape[3:]))
 
@@ -226,7 +231,7 @@ def make_collect(
             pred_masks, pred_mono, pred_mem = _forward(policy, obs, prev_mem_masked)
             act = policy.act(
                 with_vis(obs, obs_idx), hidden, masks, pred_masks, pred_mono, pred_mem,
-                generator=generator,
+                generator=generator, rows=sample_rows,
                 sampler=None if sampler is None else (lambda d, t=t: sampler(d, t)),
             )
             gt_mono_mag = obs["gt_mono_comps"][..., 0::2][..., :1]
@@ -339,15 +344,25 @@ def make_collect(
 
 
 def _mem_refit(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int, state: AgentState,
-               mono_s, gt_s, prev_s, masks, generator, lr_scales):
+               mono_s, gt_s, prev_s, masks, generator, lr_scales, w_rows=None, wsum=None):
     """The refit's grad steps: n_updates x ppo_epoch x num_mini_batch L1
     steps of the acoustic memory on its sliced inputs (T, N, 16, F/16, Tt).
     The masking of the carried memory and the channel concat are done once,
-    outside the loop. Returns the (n_updates,) mean memory losses."""
+    outside the loop. Returns the (n_updates,) mean memory losses.
+
+    `w_rows` ((T, 1) row weights, `wsum` their sum) makes each loss the
+    rank's share of the global weighted mean, summed over the world with
+    the gradients (``rl/ppo.py:make_update_pol``); None keeps the plain
+    mean of a world of one."""
+    rank, size = world()
     t, n = masks.shape[0], masks.shape[1]
     x_cat = torch.cat([mono_s, prev_s * masks.reshape(t, n, 1, 1, 1)], dim=2)
     steps_per_update = cfg.ppo_epoch * cfg.num_mini_batch
     full_batch = cfg.num_mini_batch == 1
+    shares = w_rows is not None
+    if shares:
+        w_full = w_rows.expand(t, n)
+        count = max(wsum * (n * size // cfg.num_mini_batch), 1.0)
 
     def flat(v):
         return v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
@@ -357,43 +372,108 @@ def _mem_refit(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int, state: A
     for u in range(n_updates):
         lr = cfg.lr_sep * float(lr_scales[u])
         if full_batch:
-            batches = [(x_full, g_full)] * steps_per_update
+            batches = [(x_full, g_full, flat(w_full) if shares else None)] * steps_per_update
         else:
-            perms = _epoch_perms(generator, cfg.ppo_epoch, n, cfg.num_mini_batch,
+            perms = _epoch_perms(generator, cfg.ppo_epoch, n * size, cfg.num_mini_batch,
                                  device=x_cat.device)
-            batches = [(flat(x_cat[:, idx]), flat(gt_s[:, idx])) for idx in perms]
-        for x, g in batches:
+            members = [_rank_members(idx, rank, n, size) for idx in perms]
+            batches = [(flat(x_cat[:, idx]), flat(gt_s[:, idx]),
+                        flat(w_full[:, idx]) if shares else None) for idx in members]
+        for x, g, w in batches:
             state.opt_sep.zero_grad()
-            loss = torch.abs(policy.acoustic_mem(x, sliced=True) - g).mean()
-            loss.backward()
-            state.opt_sep.step(lr)
-            losses.append(loss.detach())
+            if x.shape[0] == 0:
+                loss = torch.zeros((), device=x.device)
+            else:
+                err = torch.abs(policy.acoustic_mem(x, sliced=True) - g)
+                loss = (err.mean(dim=(1, 2, 3)) * w).sum() / count if shares else err.mean()
+                loss.backward()
+            losses.append(state.opt_sep.step(lr, extra=loss.detach().reshape(1))[0])
     return torch.stack(losses).reshape(n_updates, steps_per_update).mean(dim=1)
 
 
-def make_update_sep_from_slabs(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int):
+def make_update_sep_from_slabs(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int,
+                               with_validity: bool = False):
     """All `n_updates` separator refits of a cycle:
-    ``update(state, buf, generator, lr_scales)`` -> (n_updates, 3) losses
-    (bin L1, mono L1, memory L1 per update). It trains the acoustic memory
-    on the frozen-separator outputs the collect cached in the buffer, the
-    same values the reference recomputes every minibatch (ppo.py:179-246):
-    the passive separators are frozen and their BatchNorm uses running
-    statistics."""
+    ``update(state, buf, generator, lr_scales, fill=None)`` -> (n_updates, 3)
+    losses (bin L1, mono L1, memory L1 per update). It trains the acoustic
+    memory on the frozen-separator outputs the collect cached in the buffer,
+    the same values the reference recomputes every minibatch
+    (ppo.py:179-246): the passive separators are frozen and their BatchNorm
+    uses running statistics.
 
-    def update(state: AgentState, buf: RolloutSepIdx, generator, lr_scales):
+    With `with_validity` only the first `fill` rows of the buffer (those the
+    cycle's rollouts, cut by the preemptive sync, wrote) weigh in the losses
+    and the logged means. In a world of ranks the losses are shares of the
+    global means, summed over the world with the gradients."""
+    size = world()[1]
+    shares = size > 1 or with_validity
+
+    def update(state: AgentState, buf: RolloutSepIdx, generator, lr_scales, fill=None):
         def sliced(v):  # (T, N, F, Tt, 1) -> (T, N, 16, F/16, Tt)
             t, n = v.shape[0], v.shape[1]
             s = slice16_nchw(v.reshape((t * n,) + tuple(v.shape[2:])))
             return s.reshape((t, n) + tuple(s.shape[1:]))
 
+        t_rows, n = buf.masks.shape[0], buf.masks.shape[1]
+        w_rows = wsum = None
+        if shares:
+            wsum = float(t_rows if fill is None else fill)
+            w_rows = (torch.arange(t_rows, device=buf.masks.device) < wsum).to(
+                torch.float32).reshape(t_rows, 1)
         mem_losses = _mem_refit(
             policy, cfg, n_updates, state, sliced(buf.pred_mono), sliced(buf.gt_mono),
-            sliced(buf.prev_mem), buf.masks, generator, lr_scales,
+            sliced(buf.prev_mem), buf.masks, generator, lr_scales, w_rows, wsum,
         )
+        if shares:
+            count = max(wsum * n * size, 1.0)
+            logged = all_reduce_(torch.stack([(buf.bin_l1 * w_rows).sum() / count,
+                                              (buf.mono_l1 * w_rows).sum() / count]))
+            bin_loss, mono_loss = logged[0], logged[1]
+        else:
+            bin_loss, mono_loss = buf.bin_l1.mean(), buf.mono_l1.mean()
         per_update = torch.stack([
-            buf.bin_l1.mean().expand(n_updates), buf.mono_l1.mean().expand(n_updates),
-            mem_losses,
+            bin_loss.expand(n_updates), mono_loss.expand(n_updates), mem_losses,
         ], dim=1)
         return per_update
 
     return update
+
+
+def concat_collect_outputs(prefix: CollectOutput, tail: CollectOutput,
+                           cfg: PPOConfig) -> CollectOutput:
+    """Join the two segments of a rollout that the DDPPO preemptive sync
+    split (a prefix of ceil(short_rollout_threshold * T) steps, one store
+    check, then the tail) into one full-length rollout, with the returns
+    computed anew over the joined horizon (the JAX package's
+    ``concat_collect_outputs``). The boundary is exact: the prefix's final
+    forward and the tail's first step see the same observation and
+    parameters, so the prefix's last reward and the tail's first value are
+    those one unsplit collect computes."""
+    def cat(a, b):
+        return torch.cat([a, b], dim=0)
+
+    p, t = prefix.rollouts_pol, tail.rollouts_pol
+    rewards = cat(p["rewards"], t["rewards"])
+    value_preds = cat(p["value_preds"][:-1], t["value_preds"])
+    masks = cat(p["masks"][:-1], t["masks"])
+    rollouts_pol = {
+        "observations": {k: cat(p["observations"][k][:-1], t["observations"][k])
+                         for k in p["observations"]},
+        "hidden": cat(p["hidden"], t["hidden"][1:]),
+        "pred_binSepMasks": cat(p["pred_binSepMasks"], t["pred_binSepMasks"]),
+        "pred_mono": cat(p["pred_mono"], t["pred_mono"]),
+        "prev_pred_monoFromMem": cat(p["prev_pred_monoFromMem"],
+                                     t["prev_pred_monoFromMem"][1:]),
+        "rewards": rewards,
+        "value_preds": value_preds,
+        "returns": compute_returns(rewards, value_preds, masks, cfg.gamma, cfg.tau,
+                                   cfg.use_gae),
+        "action_log_probs": cat(p["action_log_probs"], t["action_log_probs"]),
+        "actions": cat(p["actions"], t["actions"]),
+        "masks": masks,
+    }
+    return CollectOutput(
+        tail.env_state, tail.hidden, tail.masks, tail.prev_mem_masked, rollouts_pol,
+        {k: cat(prefix.sep_slab[k], tail.sep_slab[k]) for k in prefix.sep_slab},
+        cat(prefix.stats, tail.stats),
+    )

@@ -30,6 +30,12 @@ import torch
 
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
+from move2hear_tpu_torch.parallel.dist import (
+    all_reduce_,
+    all_reduce_grads,
+    distributed_mean_var,
+    world,
+)
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
 
 EPS_PPO = 1e-5
@@ -77,10 +83,14 @@ class ClippedAdam:
         for p in self.params:
             p.grad = None
 
-    def step(self, lr: float) -> None:
+    def step(self, lr: float, extra: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """In a world of ranks the gradients are first summed over it, with
+        `extra` (the step's logged loss shares) in the same all-reduce;
+        returns `extra` summed."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        extra = all_reduce_grads(self.params, extra)
         grads = [p.grad for p in self.params]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
@@ -89,6 +99,7 @@ class ClippedAdam:
         for group in self.adam.param_groups:
             group["lr"] = lr
         self.adam.step()
+        return extra
 
     def state_dict(self) -> dict:
         return self.adam.state_dict()
@@ -164,6 +175,28 @@ def _normalized_advantages(advantages: torch.Tensor, use_normalized: bool) -> to
     return (advantages - advantages.mean()) / (advantages.std() + EPS_PPO)
 
 
+def _world_normalized_advantages(advantages: torch.Tensor, w: Optional[torch.Tensor],
+                                 use_normalized: bool) -> torch.Tensor:
+    """The normalisation over the world's advantages, those of weight `w`
+    only when given: the global mean and unbiased n/(n-1) variance, as the
+    JAX package's pmean and its validity-weighted sums (rl/ppo.py:113-158);
+    with a world of one and `w`, that of the physically truncated buffer."""
+    if not use_normalized:
+        return advantages
+    mean, var = distributed_mean_var(advantages, w)
+    return (advantages - mean) / (torch.sqrt(var) + EPS_PPO)
+
+
+def _rank_members(idx: torch.Tensor, rank: int, num_envs: int, size: int) -> torch.Tensor:
+    """This rank's local env indices among the global env indices `idx` of
+    a minibatch (rank r holds global envs [r * num_envs, (r + 1) *
+    num_envs))."""
+    if size == 1:
+        return idx
+    lo = rank * num_envs
+    return idx[(idx >= lo) & (idx < lo + num_envs)] - lo
+
+
 def _epoch_perms(generator: Optional[torch.Generator], ppo_epoch: int, num_envs: int,
                  num_mini_batch: int, device=None) -> torch.Tensor:
     """(ppo_epoch * num_mini_batch, envs_per_batch) env-index table: each
@@ -180,17 +213,35 @@ def _epoch_perms(generator: Optional[torch.Generator], ppo_epoch: int, num_envs:
 
 
 def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
-                    pose_bank: bool = False):
+                    pose_bank: bool = False, with_validity: bool = False):
     """The policy update: ``update(state, rollouts, generator, lr_scale,
-    clip_scale, banks=None)`` runs ppo_epoch x num_mini_batch steps over the
-    rollout (``returns`` already computed) and returns the (value_loss,
-    action_loss, entropy) means over all minibatches as a (3,) tensor.
+    clip_scale, banks=None, t_valid=None)`` runs ppo_epoch x num_mini_batch
+    steps over the rollout (``returns`` already computed) and returns the
+    (value_loss, action_loss, entropy) means over all minibatches as a (3,)
+    tensor.
 
     With `pose_bank` the observations carry an integer ``pose`` index in
     place of the frames; each step runs the visual encoder once over the
-    S*V*4 poses of `banks` (with gradients) and gathers a row per step."""
+    S*V*4 poses of `banks` (with gradients) and gathers a row per step.
 
-    def minibatch_loss(mb, clip_param, banks):
+    With `with_validity` the steps from `t_valid` on (not collected when the
+    DDPPO preemptive sync cut the rollout) weigh nothing in the
+    normalisation and the losses: the update equals the plain one on the
+    physically truncated rollout.
+
+    In a world of ranks (``parallel/dist.py``) `num_envs` is this rank's
+    envs; the advantages are normalised over the world, each rank's loss is
+    its share of the global minibatch mean (the sum over its rows divided by
+    the global row count), and the optimiser sums the gradients, so R ranks
+    x N envs compute what one rank of R*N envs does. With num_mini_batch >
+    1 every rank draws the permutation of the global env axis and takes its
+    members."""
+    rank, size = world()
+    # losses as shares of a global count: the plain means otherwise, which a
+    # world of one keeps
+    shares = size > 1 or with_validity
+
+    def minibatch_loss(mb, clip_param, banks, count):
         obs = mb["obs"]
         if pose_bank:
             def flat(b):
@@ -201,7 +252,7 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
             obs["visual_feats"] = vis[mb["obs"]["pose"]]
         values, log_probs, entropy, _ = policy.evaluate_actions(
             obs, mb["hidden0"], mb["masks"], mb["actions"], mb["pred_binSepMasks"],
-            mb["pred_mono"], mb["pred_monoFromMem"],
+            mb["pred_mono"], mb["pred_monoFromMem"], per_step_entropy=shares,
         )
         ratio = torch.exp(log_probs - mb["old_log_probs"])
         surr1 = ratio * mb["adv"]
@@ -215,19 +266,35 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
             )
         else:
             value_sq = torch.square(mb["returns"] - values)
-        action_loss = -torch.minimum(surr1, surr2).mean()
-        value_loss = 0.5 * value_sq.mean()
+        if shares:
+            def share(x):
+                return (x if mb["w"] is None else x * mb["w"]).sum() / count
+
+            action_loss = -share(torch.minimum(surr1, surr2))
+            value_loss = 0.5 * share(value_sq)
+            entropy = share(entropy[..., None])
+        else:
+            action_loss = -torch.minimum(surr1, surr2).mean()
+            value_loss = 0.5 * value_sq.mean()
         total = value_loss * cfg.value_loss_coef + action_loss - entropy * cfg.entropy_coef
         return total, torch.stack([value_loss, action_loss, entropy]).detach()
 
     def update(state: AgentState, rollouts, generator=None, lr_scale=1.0, clip_scale=1.0,
-               banks=None):
+               banks=None, t_valid=None):
         clip_param = cfg.clip_param * clip_scale
         lr = cfg.lr_pol * lr_scale
-        adv_all = _normalized_advantages(
-            rollouts["returns"][:-1] - rollouts["value_preds"][:-1],
-            cfg.use_normalized_advantage,
-        )
+        adv_all = rollouts["returns"][:-1] - rollouts["value_preds"][:-1]
+        t_all = adv_all.shape[0]
+        t_used = t_all if t_valid is None else int(t_valid)
+        w_steps = None
+        if with_validity:
+            w_steps = (torch.arange(t_all, device=adv_all.device) < t_used).to(
+                adv_all.dtype).reshape(t_all, 1, 1)
+        if shares:
+            adv_all = _world_normalized_advantages(adv_all, w_steps,
+                                                   cfg.use_normalized_advantage)
+        else:
+            adv_all = _normalized_advantages(adv_all, cfg.use_normalized_advantage)
         # num_mini_batch == 1 (the published config): each minibatch is all
         # envs, and a batch-mean gradient does not depend on their order, so
         # no permuted gather
@@ -235,11 +302,13 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
         if full_batch:
             perms = [None] * cfg.ppo_epoch
         else:
-            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs, cfg.num_mini_batch,
+            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs * size, cfg.num_mini_batch,
                                  device=adv_all.device)
+        envs_per = num_envs * size // cfg.num_mini_batch
+        count = float(t_used * envs_per)
         aux = []
         for idx in perms:
-            sel = slice(None) if idx is None else idx
+            sel = slice(None) if idx is None else _rank_members(idx, rank, num_envs, size)
             mb = {
                 "obs": {k: v[:-1, sel] for k, v in rollouts["observations"].items()},
                 "hidden0": rollouts["hidden"][0, sel],
@@ -252,19 +321,25 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
                 "returns": rollouts["returns"][:-1, sel],
                 "adv": adv_all[:, sel],
                 "old_log_probs": rollouts["action_log_probs"][:, sel],
+                "w": w_steps,
             }
             state.opt_pol.zero_grad()
-            total, losses = minibatch_loss(mb, clip_param, banks)
-            total.backward()
-            state.opt_pol.step(lr)
-            aux.append(losses)
+            if isinstance(sel, torch.Tensor) and sel.numel() == 0:
+                # none of this minibatch's envs is on this rank: its share is 0
+                losses = torch.zeros(3, device=adv_all.device)
+            else:
+                total, losses = minibatch_loss(mb, clip_param, banks, count)
+                total.backward()
+            # the shares sum to the world's losses (a world of one keeps its own)
+            aux.append(state.opt_pol.step(lr, extra=losses))
         return torch.stack(aux).mean(dim=0)
 
     return update
 
 
 def make_update_sep(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
-                    gt_mono_mag_norm: float = 0.0, chunk_rows: Optional[int] = None):
+                    gt_mono_mag_norm: float = 0.0, chunk_rows: Optional[int] = None,
+                    with_validity: bool = False):
     """The separator refit of the host env path (``ppo.py:179-246``; the JAX
     package's ``rl/ppo.py:make_update_sep``): ``update(state, rollouts,
     bank, generator=None, lr_scale=1.0)`` -> (bin L1, mono L1, memory L1)
@@ -277,12 +352,26 @@ def make_update_sep(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
     chunks of `chunk_rows` buffer rows (all rows when None), without
     gradients; then each step trains the acoustic memory on the L1 loss of
     its prediction against the GT mono magnitude. The bin and mono losses
-    are logged only."""
+    are logged only.
 
-    def update(state: AgentState, rollouts, bank, generator=None, lr_scale=1.0):
+    With `with_validity` the update takes ``row_weights`` ((T_total,)): the
+    rows that the preemptive sync left stale this cycle weigh nothing in
+    the losses and the logged means. In a world of ranks each loss is the
+    rank's share of the global mean and the gradients and logged losses are
+    summed over it, as in ``make_update_pol``."""
+    rank, size = world()
+    shares = size > 1 or with_validity
+
+    def update(state: AgentState, rollouts, bank, generator=None, lr_scale=1.0,
+               row_weights=None):
         lr = cfg.lr_sep * lr_scale
         masks = rollouts["masks"][:-1]
         rows, n = masks.shape[0], masks.shape[1]
+        if shares:
+            # per-row weights, (rows, 1), and the world's count of weighted rows
+            w_rows = (torch.ones((rows, 1), device=masks.device) if row_weights is None
+                      else row_weights.reshape(rows, 1).to(masks.dtype))
+            wsum = float(rows if row_weights is None else row_weights.sum())
         chunk = chunk_rows or rows
         pred_mono, gt_mono, bin_l1, mono_l1 = [], [], [], []
         with torch.no_grad():
@@ -310,28 +399,45 @@ def make_update_sep(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
                 gt_mono.append(gt.reshape((-1, n) + tuple(gt.shape[1:])))
         pred_mono, gt_mono = torch.cat(pred_mono), torch.cat(gt_mono)
         prev_masked = rollouts["prev_pred_monoFromMem"][:-1] * masks[:, :, :, None, None]
-        bin_loss, mono_loss = torch.cat(bin_l1).mean(), torch.cat(mono_l1).mean()
+        if shares:
+            # the per-sample means, weighted by row, as shares of the global mean
+            logged = torch.stack([
+                (torch.cat(l1).reshape(rows, n) * w_rows).sum() / max(wsum * n * size, 1.0)
+                for l1 in (bin_l1, mono_l1)
+            ])
+            bin_loss, mono_loss = all_reduce_(logged)
+        else:
+            bin_loss, mono_loss = torch.cat(bin_l1).mean(), torch.cat(mono_l1).mean()
 
         if cfg.num_mini_batch == 1:
             # full batch: a batch-mean gradient does not depend on env order
             perms = [None] * cfg.ppo_epoch
         else:
-            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs, cfg.num_mini_batch,
+            perms = _epoch_perms(generator, cfg.ppo_epoch, num_envs * size, cfg.num_mini_batch,
                                  device=masks.device)
+        if shares:
+            mb_count = max(wsum * (n * size // cfg.num_mini_batch), 1.0)
         mem_losses = []
         for idx in perms:
-            sel = slice(None) if idx is None else idx
+            sel = slice(None) if idx is None else _rank_members(idx, rank, num_envs, size)
 
             def flat_sel(v):
                 v = v[:, sel]
                 return v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
 
             state.opt_sep.zero_grad()
-            pred_mem = policy.get_monoFromMem(flat_sel(pred_mono), flat_sel(prev_masked))
-            loss = torch.abs(pred_mem - flat_sel(gt_mono)).mean()
-            loss.backward()
-            state.opt_sep.step(lr)
-            mem_losses.append(loss.detach())
+            if isinstance(sel, torch.Tensor) and sel.numel() == 0:
+                loss = torch.zeros((), device=masks.device)
+            else:
+                pred_mem = policy.get_monoFromMem(flat_sel(pred_mono), flat_sel(prev_masked))
+                err = torch.abs(pred_mem - flat_sel(gt_mono))
+                if shares:
+                    per = err.mean(dim=(1, 2, 3)) * flat_sel(w_rows.expand(rows, n))
+                    loss = per.sum() / mb_count
+                else:
+                    loss = err.mean()
+                loss.backward()
+            mem_losses.append(state.opt_sep.step(lr, extra=loss.detach().reshape(1))[0])
         return torch.stack([bin_loss, mono_loss, torch.stack(mem_losses).mean()])
 
     return update

@@ -15,8 +15,17 @@ separation rewards (near-target, ``sep_reward_weight`` 1 and
 host path, as the JAX package's, with separation rewards at (1, 0) and the
 env's rewards otherwise. Scene data comes from SoundSpaces-layout files
 when the config points at them (``env/bundle.py``), else from the
-synthetic micro-scene. Not ported yet, and raising NotImplementedError:
-DDPPO across processes (world size > 1) and the JAX package's ``TPU``
+synthetic micro-scene.
+
+DDPPO: launched as a world of ranks (torchrun's or SLURM's variables,
+``parallel/ddppo.py``), each rank trains NUM_PROCESSES envs on its device;
+the world's envs split the episodes, draw their actions from one global
+draw and reduce their updates over the world (``parallel/dist.py``), so R
+ranks x N envs train as one rank of R*N envs. The preemptive rollout sync
+(``use_ddppo``, a world above one rank and ``short_rollout_threshold`` < 1)
+cuts rollouts once enough ranks are done; a preemption signal saves the
+interrupted state, which the next launch of the experiment resumes. Not
+ported yet, and raising NotImplementedError: the JAX package's ``TPU``
 knobs that ``refuse_unported_knobs`` lists.
 """
 
@@ -53,9 +62,28 @@ from move2hear_tpu_torch.eval.evaluator import evaluate_checkpoint, host_obs_to_
 from move2hear_tpu_torch.eval.metrics import stft_l2_distance
 from move2hear_tpu_torch.models.policy import Move2HearPolicy
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
+from move2hear_tpu_torch.parallel.ddppo import (
+    EXIT,
+    RolloutSyncState,
+    get_distrib_info,
+    interrupted_state_path,
+    load_interrupted_state,
+    make_num_done_store,
+    requeue_job,
+    save_interrupted_state,
+)
+from move2hear_tpu_torch.parallel.dist import (
+    COMM,
+    broadcast_module,
+    collective_any,
+    gather_to_rank0,
+    world,
+    world_size,
+)
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
 from move2hear_tpu_torch.rl.device_rollout import (
     RolloutSepIdx,
+    concat_collect_outputs,
     make_collect,
     make_update_sep_from_slabs,
     q_util,
@@ -102,8 +130,9 @@ def refuse_unported_knobs(tpu, training: bool = True) -> None:
             )
     if any(int(d) > 1 for d in tpu.get("MESH_SHAPE", [1])):
         raise NotImplementedError(
-            f"TPU.MESH_SHAPE={list(tpu.MESH_SHAPE)}: the port runs on one device; "
-            "data parallelism is not ported yet (ROADMAP Queue 1 item 4)"
+            f"TPU.MESH_SHAPE={list(tpu.MESH_SHAPE)}: each rank of the port runs on one "
+            "device; its data parallelism is one rank per device, launched as a world "
+            "through WORLD_SIZE (torchrun) with RL.PPO.ddppo_distrib_backend"
         )
     if not training:
         return
@@ -118,13 +147,6 @@ def refuse_unported_knobs(tpu, training: bool = True) -> None:
             f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL} is not ported yet (ROADMAP Queue 1 "
             "item 5); the collect is a Python loop"
         )
-
-
-def world_size() -> int:
-    """The torchrun-style world size of this process (1 when not set)."""
-    if "WORLD_SIZE" in os.environ:
-        return int(os.environ["WORLD_SIZE"])
-    return int(os.environ.get("SLURM_NTASKS", 1))
 
 
 @registry.register_trainer(name="ppo")
@@ -190,11 +212,6 @@ class PPOTrainer(BaseRLTrainer):
         refuse_unported_knobs(cfg.TPU)
         if forced not in ("auto", "dense", "sub", "host"):
             raise ValueError(f"TPU.RIR_MODE must be auto|dense|sub|host, got {forced!r}")
-        if world_size() > 1:
-            raise NotImplementedError(
-                "DDPPO across processes (and its preemptive rollout sync) is "
-                "not ported yet (ROADMAP Queue 1 item 4)"
-            )
         if forced == "host" or not cfg.TPU.DEVICE_ENV:
             self._train_host()
             return
@@ -258,10 +275,13 @@ class PPOTrainer(BaseRLTrainer):
                     sub_bank.capacity * sub_bank.row_bytes / 2**30)
         return sub_bank
 
-    def _load_start_state(self, policy, state) -> int:
-        """Resume the full train state from RESUME_CKPT, or load the
-        pretrained passive separators; returns the update count to start
-        from."""
+    def _load_start_state(self, policy, state):
+        """The start state: RESUME_CKPT's full train state, else this
+        experiment's interrupted state (a file the port cannot read, or one
+        of another model, is ignored with a warning), else the pretrained
+        passive separators. In a world every rank loads the same and rank 0
+        broadcasts the weights. Returns (update count, the interrupted
+        snapshot or None)."""
         cfg, p = self.config, self.config.RL.PPO
         resume_path = cfg.RESUME_CKPT
         if resume_path:
@@ -272,19 +292,93 @@ class PPOTrainer(BaseRLTrainer):
             state.opt_sep.load_state_dict(ckpt["optimizer_sep"])
             update_count = int(ckpt["extra_state"]["update_count"])
             logger.info("resumed full train state from %s at update %d", resume_path, update_count)
-            return update_count
+            broadcast_module(policy)
+            return update_count, None
+        snap = load_interrupted_state(cfg.JOB_ID, self._interrupt_scope())
+        own = policy.state_dict()
+        if snap is not None and (
+            set(snap.get("state_dict", {})) != set(own)
+            or any(tuple(v.shape) != tuple(own[k].shape) for k, v in snap["state_dict"].items())
+        ):
+            logger.warning("ignoring interrupted state %s: its parameters do not match this "
+                           "config", interrupted_state_path(cfg.JOB_ID, self._interrupt_scope()))
+            snap = None
+        if collective_any(snap is not None) and collective_any(snap is None):
+            raise RuntimeError("the interrupted state was read on some ranks only: "
+                               "INTERRUPTED_STATE_DIR must be one every rank sees")
+        if snap is not None:
+            policy.load_state_dict(snap["state_dict"])
+            state.opt_pol.load_state_dict(snap["optimizer_pol"])
+            state.opt_sep.load_state_dict(snap["optimizer_sep"])
+            update_count = int(snap["extra_state"]["update_count"])
+            logger.info("resumed the interrupted train state at update %d", update_count)
+            broadcast_module(policy)
+            return update_count, snap
         if p.pretrained_passive_separators_ckpt:
             load_pretrained_passive_separators(
                 policy, load_checkpoint(p.pretrained_passive_separators_ckpt)["state_dict"]
             )
             logger.info("loaded pretrained passive separators")
-        return 0
+        broadcast_module(policy)
+        return 0, None
+
+    def _world(self):
+        """(rank, ranks, envs of this rank, envs of the world) of the DDPPO
+        world that sets the episode split, the sampled rows and the
+        preemptive sync: the launch's (``get_distrib_info``), which must be
+        the process group's when there is one."""
+        _, rank, ranks = get_distrib_info()
+        if world_size() > 1 and world() != (rank, ranks):
+            raise RuntimeError(f"rank {rank} of {ranks} from the environment, but {world()} in "
+                               "the process group")
+        n = self.config.NUM_PROCESSES
+        return rank, ranks, n, n * ranks
+
+    def _make_rollout_sync(self, t_steps) -> RolloutSyncState:
+        """The preemptive rollout sync (ppo_trainer.py:769-782) with its
+        num-done store; tests replace it to inject a store."""
+        p = self.config.RL.PPO
+        rank, ranks, _, _ = self._world()
+        return RolloutSyncState(
+            sync_frac=p.sync_frac, short_rollout_threshold=p.short_rollout_threshold,
+            num_steps=t_steps, world_size=ranks,
+            store=make_num_done_store(rank, ranks, p.master_addr, p.master_port),
+        )
+
+    def _sync_possible(self) -> bool:
+        p = self.config.RL.PPO
+        return bool(p.use_ddppo) and self._world()[1] > 1 and p.short_rollout_threshold < 1.0
+
+    def _check_preemption(self, state, update_count, generator, carry=None) -> bool:
+        """At a cycle's end: the ranks agree on EXIT (a signal may reach one
+        rank only), and on it rank 0 saves the interrupted state (the train
+        state, the generator and, on the device path, the world's env
+        carry, gathered) and requeues (ddppo_utils.py:26-110). True when the
+        run is to stop."""
+        if not collective_any(EXIT.is_set()):
+            return False
+        EXIT.set()
+        gathered = None if carry is None else {k: gather_to_rank0(v) for k, v in carry.items()}
+        if world()[0] == 0:
+            path = save_interrupted_state({
+                "state_dict": state.policy.state_dict(),
+                "optimizer_pol": state.opt_pol.state_dict(),
+                "optimizer_sep": state.opt_sep.state_dict(),
+                "extra_state": {"update_count": update_count,
+                                "generator": generator.get_state()},
+                "carry": None if gathered is None else {k: v.cpu() for k, v in gathered.items()},
+                "config": self.config.to_dict(),
+            }, self.config.JOB_ID, scope=self._interrupt_scope())
+            logger.info("preempted at update %d: interrupted state saved to %s", update_count,
+                        path)
+            requeue_job()
+        return True
 
     def _train_device(self, rir_mode: str = "dense") -> None:
         """The device training loop on the separate-programs route: per
         cycle, `num_updates_per_cycle` x (collect + policy update), then the
         cached separator refit. Per cycle it records, in
-        ``self.cycle_log``, the seconds of each phase, the env-steps it ran
+        ``self.cycle_log``, the seconds of each phase, this rank's env-steps
         and the mean |reward| of its steps. The phases are timed by marks
         on the device's timeline (CUDA events, read at the stats fetch, so
         the loop never waits for the device only to time it; the host clock
@@ -293,7 +387,16 @@ class PPOTrainer(BaseRLTrainer):
         rir_mode "sub" replaces the dense RIR bank by the episode-keyed
         slab (env/sub_bank.py), refreshed before each collect and
         prefetched after each policy update (TPU.SUB_PREFETCH); its
-        counters go per cycle into ``self.sub_bank_log``."""
+        counters go per cycle into ``self.sub_bank_log``.
+
+        In a DDPPO world each rank runs NUM_PROCESSES envs: the episode
+        order table is drawn for the world's envs and sliced by rank, the
+        actions are this rank's rows of one global draw, the updates reduce
+        over the world, and the stats are gathered to rank 0, which alone
+        writes TensorBoard and checkpoints. Under the preemptive sync each
+        rollout runs as a prefix of ceil(short_rollout_threshold * T)
+        steps, one store check (agreed over the world), then the tail
+        unless the world stops; the refit weighs only the rows filled."""
         cfg = self.config
         ppo_cfg = self._ppo_config()
         p = cfg.RL.PPO
@@ -314,7 +417,8 @@ class PPOTrainer(BaseRLTrainer):
             return a.elapsed_time(b) * 1e-3 if on_cuda else b - a
 
         bundle = self._make_bundle()
-        n_envs = cfg.NUM_PROCESSES
+        rank, _, n_envs, n_global = self._world()
+        is_rank0 = world()[0] == 0
         t_steps = p.num_steps
         cycle = p.num_updates_per_cycle
         max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
@@ -332,7 +436,9 @@ class PPOTrainer(BaseRLTrainer):
             rfft_on = False
         dev = de.build_device_bundle(bundle, device, precompute_rir_rfft=rfft_on,
                                      rir_mode=rir_mode)
-        order = de.make_order_table(n_envs, len(bundle.episodes), cfg.SEED)
+        # the world's table, seeded by SEED alone, and this rank's rows of it
+        order = de.make_order_table(n_global, len(bundle.episodes), cfg.SEED)[
+            rank * n_envs: (rank + 1) * n_envs]
         env_state = de.env_reset_all(dev.scene, dev.episodes, torch.as_tensor(order, device=device))
         sub_bank = self._sub_bank = (
             self._make_sub_bank(bundle, dev, order, device) if rir_mode == "sub" else None
@@ -346,7 +452,7 @@ class PPOTrainer(BaseRLTrainer):
 
         policy = self._new_policy()
         state = create_agent_state(ppo_cfg, policy)
-        update_count = self._load_start_state(policy, state)
+        update_count, snap = self._load_start_state(policy, state)
 
         # pose-indexed rollout observations whenever the collect's
         # per-rollout visual-feature bank is active: the update then runs
@@ -357,15 +463,28 @@ class PPOTrainer(BaseRLTrainer):
             and policy.pol_net.visual_encoder is not None
             and frame_bank.shape[0] * frame_bank.shape[1] * 4 <= n_envs * t_steps
         )
-        collect = make_collect(
-            policy, ppo_cfg, t_steps, max_ep_steps, gt_norm, p.extra_reward_multiplier,
-            action_codes, tuple(pol_sensors), pose_obs=pose_obs,
-            sep_rewards=p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0,
-            nav_reward_scale=(cfg.RL.DISTANCE_REWARD_SCALE if cfg.RL.WITH_DISTANCE_REWARD
-                              else 0.0),
-        )
+
+        def mk_collect(steps):
+            return make_collect(
+                policy, ppo_cfg, steps, max_ep_steps, gt_norm, p.extra_reward_multiplier,
+                action_codes, tuple(pol_sensors), pose_obs=pose_obs,
+                sep_rewards=p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0,
+                nav_reward_scale=(cfg.RL.DISTANCE_REWARD_SCALE if cfg.RL.WITH_DISTANCE_REWARD
+                                  else 0.0),
+                sample_rows=(rank * n_envs, n_global),
+            )
+
+        collect = mk_collect(t_steps)
+        # the preemptive sync: a prefix of s0 steps, one store check, the tail
+        sync_dev, s0 = None, t_steps
+        if self._sync_possible():
+            s0 = max(1, int(np.ceil(p.short_rollout_threshold * t_steps)))
+            if s0 < t_steps:
+                sync_dev = self._make_rollout_sync(t_steps)
+                collect_prefix, collect_tail = mk_collect(s0), mk_collect(t_steps - s0)
         update_pol = make_update_pol(policy, ppo_cfg, n_envs, pose_bank=pose_obs)
-        update_sep = make_update_sep_from_slabs(policy, ppo_cfg, cycle)
+        update_sep = make_update_sep_from_slabs(policy, ppo_cfg, cycle,
+                                                with_validity=sync_dev is not None)
         pol_banks = {"rgb": dev.rgb_bank, "depth": dev.depth_bank} if pose_obs else None
         sep_buf = RolloutSepIdx.create(t_steps * cycle, n_envs, cfg.NUM_SOUNDS_IN_MIX,
                                        device=device)
@@ -374,6 +493,21 @@ class PPOTrainer(BaseRLTrainer):
         prev_mem = torch.zeros((n_envs, 512, 32, 1), device=device)
         generator = torch.Generator(device=device)
         generator.manual_seed(int(cfg.SEED))
+        if snap is not None:
+            generator.set_state(snap["extra_state"]["generator"])
+            carry = snap.get("carry")
+            if carry is not None and carry["hidden"].shape[0] == n_global:
+                # this rank's rows of the world's env carry
+                mine = {k: v[rank * n_envs: (rank + 1) * n_envs].to(device)
+                        for k, v in carry.items()}
+                hidden, masks, prev_mem = (mine.pop(k) for k in ("hidden", "masks", "prev_mem"))
+                env_state = dataclasses.replace(env_state, **mine)
+                if sub_bank is not None:
+                    sub_bank.restore(env_state.cursor.cpu().numpy(),
+                                     env_state.step_count.cpu().numpy())
+            elif carry is not None:
+                logger.warning("the interrupted state's env carry holds %d envs, not %d: the "
+                               "envs start anew", carry["hidden"].shape[0], n_global)
 
         win = p.reward_window_size
         windows = {
@@ -381,18 +515,22 @@ class PPOTrainer(BaseRLTrainer):
             for k in ("reward", "steps", "mono_l2_last", "mono_l2_all", "mem_l2_last",
                       "mem_l2_all", "bin_l2_all", "ndg", "dg")
         }
-        cur_ep = {k: np.zeros((n_envs,)) for k in ("reward", "step", "bin", "mono", "mem")}
+        # the stats rank 0 gathers: the process group's envs
+        cur_ep = {k: np.zeros((n_envs * world_size(),))
+                  for k in ("reward", "step", "bin", "mono", "mem")}
         probs_win = deque(maxlen=win)
         total_env_steps = 0
         self.steady_fps = 0.0
         steady_t0, steady_steps0 = None, 0
         self.loss_log = []  # per cycle: (pol losses (cycle, 3), sep losses (cycle, 3))
         self.cycle_log = []
+        self._last_sep_fill = 0
         num_cycles = max(1, (cfg.NUM_UPDATES - update_count) // cycle)
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
-        tb = TensorboardWriter(cfg.TENSORBOARD_DIR, flush_secs=30)
+        tb = TensorboardWriter(cfg.TENSORBOARD_DIR if is_rank0 else "", flush_secs=30)
         stats_interval = max(1, int(cfg.TPU.STATS_FETCH_INTERVAL))
-        pending = []  # (env_steps_after, update_count_after, packed, pol, sep, marks)
+        pending = []  # per cycle not yet fetched: its stats, losses, marks and counts
+        comm_mark, calls_mark = COMM["seconds"], COMM["calls"]
         if on_cuda:
             torch.cuda.synchronize(device)
         self.setup_s = time.perf_counter() - t_setup
@@ -400,6 +538,7 @@ class PPOTrainer(BaseRLTrainer):
 
         for cycle_idx in range(num_cycles):
             stats_list, pol_l = [], []
+            sep_fill = 0  # rows of sep_buf this cycle's rollouts wrote
             marks = [mark()]  # collect starts, collect ends, update ends, ..., refit ends
             for sub in range(cycle):
                 idx = update_count + sub
@@ -408,13 +547,30 @@ class PPOTrainer(BaseRLTrainer):
                 if sub_bank is not None:
                     slab, table = sub_bank.rollout_inputs()
                     dev = dataclasses.replace(dev, rir_sub_bank=slab, ep_src_row=table)
-                out = collect(dev, env_state, hidden, masks, prev_mem, generator)
+                if sync_dev is None:
+                    out = collect(dev, env_state, hidden, masks, prev_mem, generator)
+                    executed = t_steps
+                else:
+                    sync_dev.new_rollout()
+                    out = collect_prefix(dev, env_state, hidden, masks, prev_mem, generator)
+                    if on_cuda:
+                        # the store read comes after this rank's prefix ran
+                        torch.cuda.synchronize(device)
+                    executed = s0
+                    # store reads race: the world stops together or not at all
+                    if not collective_any(sync_dev.should_stop_early(s0)):
+                        out = concat_collect_outputs(
+                            out, collect_tail(dev, out.env_state, out.hidden, out.masks,
+                                              out.prev_mem_masked, generator), ppo_cfg)
+                        executed = t_steps
+                    sync_dev.mark_done()
                 if sub_bank is not None:
-                    sub_bank.advance(t_steps)
+                    sub_bank.advance(executed)
                 env_state, hidden, masks, prev_mem = (
                     out.env_state, out.hidden, out.masks, out.prev_mem_masked
                 )
-                write_sep_slab(sep_buf, out.sep_slab, sub * t_steps)
+                write_sep_slab(sep_buf, out.sep_slab, sep_fill)
+                sep_fill += executed
                 marks.append(mark())
                 pol_l.append(update_pol(state, out.rollouts_pol, generator, lr_scale,
                                         clip_scale, banks=pol_banks))
@@ -429,44 +585,66 @@ class PPOTrainer(BaseRLTrainer):
                 linear_decay(update_count + i, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
                 for i in range(cycle)
             ]
-            sep_losses = update_sep(state, sep_buf, generator, sep_lrs)
+            if sync_dev is None:
+                sep_losses = update_sep(state, sep_buf, generator, sep_lrs)
+                packed = torch.stack(stats_list)
+            else:
+                sep_losses = update_sep(state, sep_buf, generator, sep_lrs, fill=sep_fill)
+                # the rollouts may differ in length: one step axis
+                packed = torch.cat(stats_list)[None]
             marks.append(mark())
+            self._last_sep_fill = sep_fill
             if sub_bank is not None:
                 self._log_sub_bank(sub_bank)
             update_count += cycle
-            total_env_steps += cycle * t_steps * n_envs
-            pending.append((total_env_steps, update_count, torch.stack(stats_list),
-                            torch.stack(pol_l), sep_losses, marks))
+            total_env_steps += sep_fill * n_global
+            pending.append({
+                "steps_at": total_env_steps, "upd_at": update_count, "packed": packed,
+                "pol": torch.stack(pol_l), "sep": sep_losses, "marks": marks,
+                "env_steps": sep_fill * n_envs,
+                # host seconds in the collectives since the last cycle's end
+                "comm_s": COMM["seconds"] - comm_mark, "comm_calls": COMM["calls"] - calls_mark,
+            })
+            comm_mark, calls_mark = COMM["seconds"], COMM["calls"]
 
-            if len(pending) >= stats_interval or cycle_idx == num_cycles - 1:
-                reward_abs = []
-                for steps_at, upd_at, packed, pol_h, sep_h, _ in pending:
-                    st = unpack_stats(packed.cpu().numpy())
-                    st_flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st.items()}
-                    reward_abs.append(float(np.abs(st_flat["reward"]).mean()))
-                    self._absorb_stats(st_flat, windows, cur_ep)
-                    probs_win.append(st_flat["probs"].mean(axis=(0, 1)))
-                    pol_h, sep_h = pol_h.cpu().numpy(), sep_h.cpu().numpy()
+            stop = self._check_preemption(state, update_count, generator, carry={
+                **{f: getattr(env_state, f) for f in ("node", "rot", "step_count", "ep",
+                                                      "cursor", "prev_geo")},
+                "hidden": hidden, "masks": masks, "prev_mem": prev_mem,
+            })
+            if len(pending) >= stats_interval or cycle_idx == num_cycles - 1 or stop:
+                for e in pending:
+                    local = e["packed"].cpu().numpy()
+                    # the world's (..., N_global, K) stats on rank 0
+                    packed = gather_to_rank0(e["packed"], dim=e["packed"].dim() - 2)
+                    pol_h, sep_h = e["pol"].cpu().numpy(), e["sep"].cpu().numpy()
                     self.loss_log.append((pol_h, sep_h))
-                    lr_now = p.lr_pol * (
-                        linear_decay(upd_at, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
-                    )
-                    self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1],
-                                           lr_now, steps_at)
-                # the fetch above waited for every mark of the flushed cycles
-                for (*_, m), r_abs in zip(pending, reward_abs):
+                    m = e["marks"]  # the fetches above waited for every mark
                     self.cycle_log.append({
                         "collect": sum(secs(a, b) for a, b in zip(m[0:-1:2], m[1:-1:2])),
                         "update": sum(secs(a, b) for a, b in zip(m[1:-1:2], m[2:-1:2])),
                         "refit": secs(m[-2], m[-1]),
                         "total": secs(m[0], m[-1]),
-                        "env_steps": cycle * t_steps * n_envs,
-                        "reward_abs_mean": r_abs,
+                        "env_steps": e["env_steps"],
+                        "reward_abs_mean": float(np.abs(unpack_stats(local)["reward"]).mean()),
+                        "comm_s": e["comm_s"], "comm_calls": e["comm_calls"],
                     })
+                    if not is_rank0:
+                        continue
+                    st = unpack_stats(packed.cpu().numpy())
+                    st_flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in st.items()}
+                    self._absorb_stats(st_flat, windows, cur_ep)
+                    probs_win.append(st_flat["probs"].mean(axis=(0, 1)))
+                    lr_now = p.lr_pol * (
+                        linear_decay(e["upd_at"], cfg.NUM_UPDATES) if p.use_linear_lr_decay
+                        else 1.0
+                    )
+                    self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1],
+                                           lr_now, e["steps_at"])
                 pending.clear()
                 value_loss, action_loss, entropy = pol_h[-1]
                 bin_loss, mono_loss, mem_loss = sep_h[-1]
-                if (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
+                if is_rank0 and (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
                     fps = total_env_steps / max(1e-9, time.time() - t_start)
                     logger.info(
                         "update %d | fps %.1f (steady %.1f) | value %.4f action %.4f "
@@ -484,11 +662,17 @@ class PPOTrainer(BaseRLTrainer):
                 elif total_env_steps > steady_steps0:
                     self.steady_fps = (total_env_steps - steady_steps0) / (time.time() - steady_t0)
 
-            if cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
+            if is_rank0 and cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
                 self._save(state, update_count, cycle_idx)
+            if stop:
+                break
 
         tb.close()
-        self._save(state, update_count, num_cycles)
+        if not stop:
+            if is_rank0:
+                self._save(state, update_count, num_cycles)
+            self._clear_interrupted_state()
+        self.final_policy = policy
 
     def _log_sub_bank(self, sub_bank: RirSubBank) -> None:
         """Append the sub-bank's counters since the last cycle to
@@ -506,23 +690,25 @@ class PPOTrainer(BaseRLTrainer):
     # ------------------------------------------------------------------
     def _make_envs(self, bundle):
         """The host envs of the host path (env_utils.py:531-687): a
-        multi-scene bundle's scenes go round-robin to the envs (at least as
-        many scenes as envs; shuffled for a train split), a single scene's
-        episodes are split over the envs when there are enough. Worker
-        processes unless USE_SYNC_VECENV or not USE_VECENV."""
+        multi-scene bundle's scenes go round-robin to the world's envs (at
+        least as many scenes as envs; shuffled for a train split), a single
+        scene's episodes are split over them when there are enough; this
+        rank builds its NUM_PROCESSES envs of them, env i of rank r seeded
+        SEED + r * NUM_PROCESSES + i. Worker processes unless USE_SYNC_VECENV
+        or not USE_VECENV."""
         cfg = self.config
-        n = cfg.NUM_PROCESSES
+        rank, _, n, n_global = self._world()
         p = cfg.RL.PPO
         near = p.sep_reward_weight == 1.0 and p.nav_reward_weight == 0.0
         scene_names = list(bundle.scenes)
         if len(scene_names) > 1:
             splits = split_scenes_round_robin(
-                scene_names, n, shuffle=cfg.TASK_CONFIG.DATASET.SPLIT[:5] == "train",
+                scene_names, n_global, shuffle=cfg.TASK_CONFIG.DATASET.SPLIT[:5] == "train",
                 seed=cfg.SEED,
             )
-            per_env = [bundle.episodes.filter_by_scenes(splits[i]) for i in range(n)]
-        elif len(bundle.episodes) >= n:
-            per_env = [bundle.episodes.split_for_rank(i, n) for i in range(n)]
+            per_env = [bundle.episodes.filter_by_scenes(splits[rank * n + i]) for i in range(n)]
+        elif len(bundle.episodes) >= n_global:
+            per_env = [bundle.episodes.split_for_rank(rank * n + i, n_global) for i in range(n)]
         else:
             per_env = [bundle.episodes] * n
         env_fns = [
@@ -532,7 +718,7 @@ class PPOTrainer(BaseRLTrainer):
                 distance_reward_scale=cfg.RL.DISTANCE_REWARD_SCALE,
                 gt_mono_mag_norm=cfg.TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM,
                 possible_actions=tuple(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
-                seed=cfg.SEED + i,  # per-env seeds (ppo_trainer.py:605-613)
+                seed=cfg.SEED + rank * n + i,  # per-env seeds (ppo_trainer.py:605-613)
                 episodes=per_env[i],
             )
             for i in range(n)
@@ -545,9 +731,10 @@ class PPOTrainer(BaseRLTrainer):
         return {k: np.stack([np.asarray(o[k]) for o in observations]) for k in observations[0]}
 
     @staticmethod
-    def _build_rollout_step(policy: Move2HearPolicy, gt_mono_mag_norm: float):
+    def _build_rollout_step(policy: Move2HearPolicy, gt_mono_mag_norm: float, rows=None):
         """One device step per env step: ``step(bank, host, hidden, masks,
-        prev_mem_masked, generator)`` renders the envs' render keys
+        prev_mem_masked, generator)`` (the actions: `rows` of the world's
+        global draw) renders the envs' render keys
         (magnitudes only: the loop reads phases only through the same-phase
         STFT-L2), runs the separator chain, the acoustic memory and the
         policy, and returns (obs, pred_masks, pred_mono, pred_mem, act,
@@ -571,7 +758,7 @@ class PPOTrainer(BaseRLTrainer):
             pm = policy.get_binSepMasks(obs)
             mono = policy.convert_bin2mono(pm, obs["mixed_bin_audio_mag"])
             mem = policy.get_monoFromMem(mono, prev_mem_masked)
-            act = policy.act(obs, hidden, masks, pm, mono, mem, generator=generator)
+            act = policy.act(obs, hidden, masks, pm, mono, mem, generator=generator, rows=rows)
             bin_l2, mono_l2 = stft_l2_distance(obs["mixed_bin_audio_mag"], pm,
                                                obs["gt_bin_comps"], mono, obs["gt_mono_comps"])
             _, mem_l2 = stft_l2_distance(obs["mixed_bin_audio_mag"], pm, obs["gt_bin_comps"],
@@ -619,7 +806,8 @@ class PPOTrainer(BaseRLTrainer):
 
     def _host_loop(self, envs, bundle, ppo_cfg, p, device, sync, t_setup) -> None:
         cfg = self.config
-        n_envs = envs.num_envs
+        rank, _, n_envs, n_global = self._world()
+        is_rank0 = world()[0] == 0
         t_steps = p.num_steps
         cycle = p.num_updates_per_cycle
         max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
@@ -628,15 +816,22 @@ class PPOTrainer(BaseRLTrainer):
 
         policy = self._new_policy()
         state = create_agent_state(ppo_cfg, policy)
-        update_count = self._load_start_state(policy, state)
+        update_count, snap = self._load_start_state(policy, state)
         wav_bank = torch.from_numpy(np.asarray(bundle.audio_db.mono_bank(), np.float32)).to(device)
-        rollout_step = self._build_rollout_step(policy, gt_norm)
-        update_pol = make_update_pol(policy, ppo_cfg, n_envs)
+        rollout_step = self._build_rollout_step(policy, gt_norm, rows=(rank * n_envs, n_global))
+        # under the preemptive sync a rollout may stop at any step from
+        # threshold * T on: the updates weigh only the collected steps
+        sync_possible = self._sync_possible()
+        update_pol = make_update_pol(policy, ppo_cfg, n_envs, with_validity=sync_possible)
         # the refit renders one rollout's rows (num_steps x envs) at a time
         update_sep = make_update_sep(policy, ppo_cfg, n_envs, gt_mono_mag_norm=gt_norm,
-                                     chunk_rows=t_steps)
+                                     chunk_rows=t_steps, with_validity=sync_possible)
+        rollout_sync = self._make_rollout_sync(t_steps) if sync_possible else None
         generator = torch.Generator(device=device)
         generator.manual_seed(int(cfg.SEED))
+        if snap is not None:
+            # the host envs start anew: their simulators' state is not saved
+            generator.set_state(snap["extra_state"]["generator"])
 
         obs0_host = self._host_batch(envs.reset())
         host = host_obs_to_device(obs0_host, device, batch=False)
@@ -668,9 +863,12 @@ class PPOTrainer(BaseRLTrainer):
             for k in ("reward", "steps", "mono_l2_last", "mono_l2_all", "mem_l2_last",
                       "mem_l2_all", "bin_l2_all", "ndg", "dg")
         }
-        cur_ep = {k: np.zeros((n_envs,)) for k in ("reward", "step", "bin", "mono", "mem")}
+        # the stats rank 0 gathers: the process group's envs
+        cur_ep = {k: np.zeros((n_envs * world_size(),))
+                  for k in ("reward", "step", "bin", "mono", "mem")}
+        ep_step0 = 0  # env 0's episode step, which keys the reward's bonus
         probs_win = deque(maxlen=win)
-        tb = TensorboardWriter(cfg.TENSORBOARD_DIR, flush_secs=30)
+        tb = TensorboardWriter(cfg.TENSORBOARD_DIR if is_rank0 else "", flush_secs=30)
         os.makedirs(cfg.CHECKPOINT_FOLDER, exist_ok=True)
         self.loss_log, self.cycle_log = [], []
         self.steady_fps = 0.0
@@ -678,17 +876,20 @@ class PPOTrainer(BaseRLTrainer):
         total_env_steps = 0
         num_cycles = max(1, (cfg.NUM_UPDATES - update_count) // cycle)
         self.setup_s = sync() - t_setup
+        comm_mark = COMM["seconds"]
 
         def decay(i):
             return linear_decay(i, cfg.NUM_UPDATES)
 
         for cycle_idx in range(num_cycles):
             secs = dict.fromkeys(("env", "device_step", "update", "refit"), 0.0)
-            reward_abs, pol_l = [], []
+            pol_l, step_rows = [], []
             t_cycle = time.perf_counter()
             sep_step = 0
             for sub in range(cycle):
                 idx = update_count + sub
+                if sync_possible:
+                    rollout_sync.new_rollout()
                 for step_t in range(t_steps):
                     t0 = time.perf_counter()
                     outputs = envs.step([int(a) for a in host_actions])
@@ -708,29 +909,24 @@ class PPOTrainer(BaseRLTrainer):
                         # reference's current_episode_step[0] (ppo_trainer.py:395)
                         rewards = sep_reward(
                             cur_stats["q"], next_stats["q"], masks_next[:, 0],
-                            int(cur_ep["step"][0]) == max_ep_steps - 2,
-                            p.extra_reward_multiplier,
+                            ep_step0 == max_ep_steps - 2, p.extra_reward_multiplier,
                         )[:, None]
                     else:
                         rewards = torch.tensor(np.asarray(env_rewards, np.float32),
                                                device=device)[:, None]
+                    ep_step0 = 0 if dones[0] else ep_step0 + 1
                     # one host fetch a step: the next actions and the stats
                     fetched = torch.cat([
                         next_act.action.to(torch.float32), rewards, cur_stats["bin_l2"],
                         cur_stats["mono_l2"], cur_stats["mem_l2"], next_act.probs,
                     ], dim=1).cpu().numpy()
                     host_actions = fetched[:, 0].astype(np.int64)
-                    rew_h, bin_h, mono_h, mem_h = (fetched[:, i] for i in range(1, 5))
-                    probs_win.append(fetched[:, 5:].mean(axis=0))
-                    reward_abs.append(np.abs(rew_h))
-                    self._absorb_stats({
-                        "q": rew_h[None], "done": np.asarray(dones)[None], "reward": rew_h[None],
-                        "bin_l2": bin_h[None], "mono_l2": mono_h[None], "mem_l2": mem_h[None],
-                        "ndg": np.asarray([i["normalized_geo_distance_to_target_audio_source"]
-                                           for i in infos])[None],
-                        "geo": np.asarray([i["geo_distance_to_target_audio_source"]
-                                           for i in infos])[None],
-                    }, windows, cur_ep)
+                    step_rows.append(np.concatenate([
+                        fetched[:, 1:], np.asarray(dones, np.float64)[:, None],
+                        np.asarray([[i["normalized_geo_distance_to_target_audio_source"],
+                                     i["geo_distance_to_target_audio_source"]]
+                                    for i in infos], np.float64),
+                    ], axis=1))
 
                     insert_pol(rollouts_pol, step_t, {k: next_obs[k] for k in pol_sensors},
                                cur_act.hidden, cur_act.action, cur_act.action_log_probs,
@@ -741,45 +937,74 @@ class PPOTrainer(BaseRLTrainer):
                     cur_obs, cur_pm, cur_mono, cur_mem, cur_act, cur_stats = nxt
                     total_env_steps += n_envs
                     secs["device_step"] += time.perf_counter() - t1
+                    t_col = step_t + 1
+                    # store reads race: the world cuts at the same step
+                    if (sync_possible and t_col >= p.short_rollout_threshold * t_steps
+                            and collective_any(rollout_sync.should_stop_early(t_col))):
+                        break
+                if sync_possible:
+                    rollout_sync.mark_done()
 
                 # policy update
                 t2 = time.perf_counter()
-                rollouts_pol.value_preds[-1].copy_(cur_act.value)
+                t_valid = t_col if sync_possible else None
+                rollouts_pol.value_preds[t_col].copy_(cur_act.value)
                 rollouts_pol.returns.copy_(compute_returns(
                     rollouts_pol.rewards, rollouts_pol.value_preds, rollouts_pol.masks,
-                    ppo_cfg.gamma, ppo_cfg.tau, ppo_cfg.use_gae,
+                    ppo_cfg.gamma, ppo_cfg.tau, ppo_cfg.use_gae, t_valid=t_valid,
                 ))
                 pol_l.append(update_pol(
                     state, rollouts_pol.as_dict(), generator,
                     decay(idx) if p.use_linear_lr_decay else 1.0,
-                    decay(idx) if p.use_linear_clip_decay else 1.0,
+                    decay(idx) if p.use_linear_clip_decay else 1.0, t_valid=t_valid,
                 ))
-                after_update_pol(rollouts_pol)
+                after_update_pol(rollouts_pol, t_valid)
                 secs["update"] += sync() - t2
 
-            # separator refit (ppo_trainer.py:979-994)
+            # separator refit (ppo_trainer.py:979-994); under the sync the
+            # rows past the cycle's last filled one weigh nothing (the
+            # boundary row rolls into slot 0 and trains next cycle)
             t3 = time.perf_counter()
+            row_w = None
+            if sync_possible:
+                row_w = (torch.arange(rollouts_sep.masks.shape[0] - 1, device=device)
+                         < sep_step).to(torch.float32)
             sep_l = [
                 update_sep(state, rollouts_sep.as_dict(), wav_bank, generator,
-                           decay(update_count + i) if p.use_linear_lr_decay else 1.0)
+                           decay(update_count + i) if p.use_linear_lr_decay else 1.0,
+                           row_weights=row_w)
                 for i in range(cycle)
             ]
-            after_update_sep(rollouts_sep)
+            after_update_sep(rollouts_sep, sep_step if sync_possible else None)
+            self._last_sep_fill = sep_step
             pol_h = torch.stack(pol_l).cpu().numpy()
             sep_h = torch.stack(sep_l).cpu().numpy()
             secs["refit"] = sync() - t3
             update_count += cycle
             self.loss_log.append((pol_h, sep_h))
+            # the cycle's per-step stats, (steps, N, K), of the world on rank 0
+            rows = gather_to_rank0(torch.from_numpy(np.stack(step_rows)), dim=1)
             self.cycle_log.append({
                 **secs, "total": time.perf_counter() - t_cycle,
-                "env_steps": cycle * t_steps * n_envs,
-                "reward_abs_mean": float(np.mean(reward_abs)),
+                "env_steps": sep_step * n_envs,
+                "reward_abs_mean": float(np.mean(np.abs(np.stack(step_rows)[..., 0]))),
+                "comm_s": COMM["seconds"] - comm_mark,
             })
-            steps_now = update_count * t_steps * n_envs
-            lr_now = p.lr_pol * (decay(update_count) if p.use_linear_lr_decay else 1.0)
-            self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1], lr_now,
-                                   steps_now)
-            if (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
+            comm_mark = COMM["seconds"]
+            if is_rank0:
+                rows = rows.numpy()
+                na = rows.shape[-1] - 7
+                self._absorb_stats({
+                    "q": rows[..., 0], "reward": rows[..., 0], "bin_l2": rows[..., 1],
+                    "mono_l2": rows[..., 2], "mem_l2": rows[..., 3],
+                    "done": rows[..., 4 + na], "ndg": rows[..., 5 + na], "geo": rows[..., 6 + na],
+                }, windows, cur_ep)
+                probs_win.extend(rows[..., 4: 4 + na].mean(axis=1))
+                steps_now = update_count * t_steps * n_global
+                lr_now = p.lr_pol * (decay(update_count) if p.use_linear_lr_decay else 1.0)
+                self._write_tb_scalars(tb, windows, probs_win, pol_h[-1], sep_h[-1], lr_now,
+                                       steps_now)
+            if is_rank0 and (update_count // cycle) % max(1, cfg.LOG_INTERVAL // cycle) == 0:
                 value_loss, action_loss, entropy = pol_h[-1]
                 logger.info(
                     "update %d | env t %.1f | dev t %.1f | value %.4f action %.4f entropy "
@@ -793,12 +1018,19 @@ class PPOTrainer(BaseRLTrainer):
                 steady_t0, steady_steps0 = time.time(), total_env_steps
             else:
                 self.steady_fps = (total_env_steps - steady_steps0) / (time.time() - steady_t0)
-            if cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
+            if is_rank0 and cycle_idx % max(1, cfg.CHECKPOINT_INTERVAL // cycle) == 0:
                 self._save(state, update_count, cycle_idx)
+            stop = self._check_preemption(state, update_count, generator)
+            if stop:
+                break
 
         tb.close()
-        self._save(state, update_count, num_cycles)
+        if not stop:
+            if is_rank0:
+                self._save(state, update_count, num_cycles)
+            self._clear_interrupted_state()
         self._windows = windows
+        self.final_policy = policy
 
     # ------------------------------------------------------------------
     def _write_tb_scalars(self, tb, windows, probs_win, pol_losses, sep_losses, lr_now, step):

@@ -274,7 +274,8 @@ def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
 
 
 # The JAX package's TPU knobs the port does not honour: each is refused
-# (ROADMAP Queue 1 items 4 and 5), never run as if unset.
+# (ROADMAP Queue 1 item 5; a mesh above one device, by the port's one
+# rank per device), never run as if unset.
 KNOBS_REFUSED_BY_EVAL = [
     ["TPU.COMPUTE_DTYPE", "bfloat16"],
     ["TPU.SEP_SLAB_DTYPE", "bfloat16"],
@@ -286,7 +287,6 @@ KNOBS_REFUSED_BY_EVAL = [
 
 @pytest.mark.parametrize("opts,env", [
     (["TPU.COMPUTE_DTYPE", "bfloat16"], {}),
-    ([], {"WORLD_SIZE": "2"}),
     *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL[1:]],
     (["TPU.FUSED_CYCLE", "True"], {}),
     (["TPU.PAIRWISE_FUSION", "True"], {}),
@@ -298,7 +298,7 @@ def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     cfg = get_config(EXP, _train_opts(4) + opts, str(tmp_path), "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item|reward"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item|reward|one rank per"):
         PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8, rir_length=400),
                    device="cpu").train()
     assert not os.path.exists(cfg.CHECKPOINT_FOLDER)  # refused before any training
@@ -372,7 +372,7 @@ def test_eval_refuses_the_knobs_not_ported(tmp_path, opts):
                      ["RL.PPO.hidden_size", str(HID), "EVAL_EPISODE_COUNT", "2",
                       "TPU.DEVICE_EVAL_MIN_EPISODES", "2", "TPU.MAX_RIR_LENGTH", "400", *opts],
                      str(tmp_path), "eval")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item|one rank per"):
         PPOTrainer(cfg, device="cpu")._eval_checkpoint(ckpt)
     assert not os.path.exists(tmp_path / "test_nearTarget_stats_ckpt_0_0.json")
 
