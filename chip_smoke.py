@@ -11,12 +11,15 @@ Phases, each printing its own line(s) with its seconds:
   3. kernels: each against its plain PyTorch version on the card at the
      eval path's shapes and at edge shapes (small and ragged sizes, a view
      with a storage offset; overlap_add bitwise; the masked_mix_slice16
-     backward at every masked_mix_slice16 shape), then, at the paths'
-     shapes, kernel and plain device times (CUDA events around CUDA-graph
-     replays; L2-cold over input copies that overflow the L2, and L2-hot
-     over one input set), the time of an empty kernel of the same grid in
-     the same harness (the launch floor), the per-call time when issued
-     from Python, and the least time the card's memory rate allows;
+     backward at every masked_mix_slice16 shape), and the bfloat16-mask
+     variants of masked_mix_slice16 and its backward at every shape the
+     bfloat16 paths launch them at and at edge shapes (a float16 mask must
+     raise); then, at the paths' shapes, kernel and plain device times
+     (CUDA events around CUDA-graph replays; L2-cold over input copies that
+     overflow the L2, and L2-hot over one input set), the time of an empty
+     kernel of the same grid in the same harness (the launch floor), the
+     per-call time when issued from Python, and the least time the card's
+     memory rate allows;
   4. slice: ``move2hear_tpu_torch.main --run-type eval`` with
      configs/test/nearTarget.yaml at full width (hidden 512, 64 micro-scene
      episodes, 16 envs, seeded random weights), cold then warm; the launch
@@ -108,6 +111,26 @@ Phases, each printing its own line(s) with its seconds:
      ddppo-preempt: SIGUSR2 to both ranks once their handlers are set; both
      exit 0 after cycle 1 with the interrupted state saved at update 6, a
      relaunch resumes there, ends at update 12 and removes the state;
+ 8j. bf16-train: phase 8's train CLI with TPU.COMPUTE_DTYPE, SEP_SLAB_DTYPE
+     and SEP_REFIT_DTYPE bfloat16 and REPORT_MFU, 2 cycles from phase 6's
+     separators: set-up, warm env-steps/s beside phase 8's float32 rate,
+     mfu_info and MFU against the card's dense bfloat16 tensor-core peak,
+     finite losses, peak device memory, launch counters equal to
+     BF16_TRAIN_LAUNCHES; then the eval CLI on its checkpoint;
+ 8k. bench-shape: bench.py's default device-mode run through the port's
+     own config: 112 envs x 20 steps, 6 updates a cycle, 4 epochs, bfloat16,
+     REPORT_MFU, the 4x4 micro-scene with 224 episodes and 16,000-sample
+     RIRs, 2 cycles: warm env-steps/s, MFU, peak device memory, launch
+     counters equal to BENCH_LAUNCHES;
+ 8l. bf16-sub: on the scale-parity fixture, TPU.SUB_BANK_DTYPE bfloat16:
+     the gathered rows bitwise the dense bank's rounded to bfloat16, one
+     cycle's losses against the float32 slab's within BF16_SUB_LOSS_REL,
+     and the slab GB the gate reckons for the scale fixture at 2 bytes a
+     sample (no allocation);
+ 8m. bf16-pretrain: 2 pretrain epochs in bfloat16 (finite losses, warm
+     samples/s beside phase 6's); bf16-parity: the card's bfloat16 policy
+     forward against the CPU's, under the CPU tests' discriminator; a
+     2-episode host eval in bfloat16 (BF16_HOST_EVAL_LAUNCHES);
  9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -158,6 +181,9 @@ REPLACES = {
     "overlap_add": "move2hear_tpu/ops/pallas_kernels.py:186",
     # the analytic custom-VJP backward (jnp, not a Pallas kernel)
     "masked_mix_slice16_bwd": "move2hear_tpu/ops/pallas_kernels.py:140",
+    # the same kernel and VJP for a float32 mix with a bfloat16 mask
+    "masked_mix_slice16_bf16": "move2hear_tpu/ops/pallas_kernels.py:85",
+    "masked_mix_slice16_bwd_bf16": "move2hear_tpu/ops/pallas_kernels.py:140",
 }
 # Launches of each kernel on the two paths the script drives.
 # eval: 16 envs x 20 steps x 5 batches; 2 masked_mix_slice16 a step (the
@@ -218,6 +244,58 @@ PRETRAIN_EVAL_LAUNCHES = {"masked_mix_slice16": 4, "overlap_add": 0, "masked_mix
 DDPPO_TRAIN_LAUNCHES = {"masked_mix_slice16": 552, "overlap_add": 0, "masked_mix_slice16_bwd": 0}
 DDPPO_RANKS = 2
 DDPPO_OPTS = ["NUM_PROCESSES", "7", "RL.PPO.ddppo_distrib_backend", "GLOO"]
+# Phases 8j-8m, TPU.COMPUTE_DTYPE bfloat16: the separators hand the kernel
+# bfloat16 masks, so every masked_mix_slice16 launch of these paths is the
+# bfloat16-mask variant.
+BF16_OPTS = ["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.SEP_SLAB_DTYPE", "bfloat16",
+             "TPU.SEP_REFIT_DTYPE", "bfloat16", "TPU.REPORT_MFU", "True"]
+
+
+def _bf16_launches(n):
+    return {"masked_mix_slice16": 0, "overlap_add": 0, "masked_mix_slice16_bwd": 0,
+            "masked_mix_slice16_bf16": n, "masked_mix_slice16_bwd_bf16": 0}
+
+
+# bf16-train: phase 8's cycle, 552 as train (B=14 collect, B=280 PPO epoch).
+BF16_TRAIN_LAUNCHES = _bf16_launches(552)
+# bench-shape: 2 cycles x 6 updates x (20 collect steps x 2 + 2 for the
+# bootstrap forward + 4 PPO epochs x 1) = 552, at B=112 in the collect and
+# B=2240 in the PPO epochs.
+BENCH_LAUNCHES = _bf16_launches(552)
+# bench.py:117-147's overrides (device mode) and its 4x4 micro-scene
+# (bench.py:158-161 at 112 envs: max(64, 2 x 112) episodes)
+BENCH_OPTS = [
+    "NUM_PROCESSES", "112", "NUM_UPDATES", "12", "CHECKPOINT_INTERVAL", "100000",
+    "LOG_INTERVAL", "100000", "RL.PPO.num_steps", "20", "RL.PPO.num_updates_per_cycle", "6",
+    "RL.PPO.ppo_epoch", "4", "RL.PPO.num_mini_batch", "1", "RL.PPO.use_ddppo", "True",
+    "RL.PPO.sep_reward_weight", "1.0", "RL.PPO.nav_reward_weight", "0.0",
+    "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "20",
+    "TASK_CONFIG.SIMULATOR.AUDIO.GT_MONO_MAG_NORM", "1.2", "TPU.STATS_FETCH_INTERVAL", "2",
+    "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.REPORT_MFU", "True",
+]
+BENCH_SCENE = dict(rows=4, cols=4, num_episodes=224, near_target=True, rir_length=16000)
+# bf16-pretrain: 2 epochs x (4 train steps + 2 validation batches of 64).
+BF16_PRETRAIN_EPOCHS = 2
+BF16_PRETRAIN_LAUNCHES = _bf16_launches(12)
+# bf16 host eval: 2 episodes x 20 steps x 2 (B=1).
+BF16_HOST_EVAL_LAUNCHES = _bf16_launches(80)
+# bf16-sub: one cycle's losses on the bfloat16 slab against the float32
+# slab's (tests/test_torch_bf16_knobs.py holds the CPU to the same bound):
+# the RIRs rounded to bfloat16 move each render by about 2**-9 relative.
+BF16_SUB_LOSS_REL = 2e-2
+# Dense bfloat16 tensor-core peak by the name nvidia-smi gives, and its
+# source (NVIDIA H100 Tensor Core GPU data sheet: BF16 1,979 TFLOPS with
+# sparsity for the SXM5 part, 1,513 for PCIe, 1,671 for NVL; dense is half)
+BF16_PEAK_FLOPS = {
+    "NVIDIA H100 80GB HBM3": (989e12, "H100 SXM5 data sheet, 1,979 TFLOP/s sparse / 2"),
+    "NVIDIA H100 PCIe": (756e12, "H100 PCIe data sheet, 1,513 TFLOP/s sparse / 2"),
+    "NVIDIA H100 NVL": (835e12, "H100 NVL data sheet, 1,671 TFLOP/s sparse / 2"),
+}
+# the bf16-parity discriminator, tests/test_torch_bf16_models.py's: the card
+# at least BF16_RATIO times closer to the CPU's bfloat16 than that is to
+# the CPU's float32 (mean abs error), the largest error within
+# BF16_MAX_ULPS bfloat16 ulps of the largest output
+BF16_RATIO, BF16_MAX_ULPS = 2.0, 4
 # Shapes each kernel is held to on the card. The first is the eval path's
 # (one launch per separator call at 16 envs; the step's five ISTFTs of 16
 # envs in one trimmed overlap-add); masked_mix_slice16's "train" is the PPO
@@ -238,6 +316,23 @@ MM_CASES = {
     "C=3": (2, 64, 8, 3, 0),
     "F=16": (2, 16, 32, 2, 0),
     "T=1": (2, 512, 1, 2, 0),
+    "T=6": (2, 512, 6, 2, 0),
+    "T=33": (2, 512, 33, 2, 0),
+    "offset1": (4, 512, 32, 2, 1),
+}
+# The bfloat16-mask variant at every shape the bfloat16 paths launch it at
+# (collect B=14, PPO epoch B=280, pretrain B=64, host evaluator B=1, the
+# bench shape's collect B=112 and PPO epoch B=2240) and edge shapes; the
+# backward at all of them. The mask's storage offset counts bfloat16
+# elements (offset 1: not on an 8-byte boundary, the scalar kernel).
+MM_BF16_CASES = {
+    "collect": (14, 512, 32, 2, 0),
+    "train": (280, 512, 32, 2, 0),
+    "pretrain": (64, 512, 32, 2, 0),
+    "B=1": (1, 512, 32, 2, 0),
+    "bench-collect": (112, 512, 32, 2, 0),
+    "bench-train": (2240, 512, 32, 2, 0),
+    "C=1": (2, 512, 32, 1, 0),
     "T=6": (2, 512, 6, 2, 0),
     "T=33": (2, 512, 33, 2, 0),
     "offset1": (4, 512, 32, 2, 1),
@@ -347,6 +442,24 @@ def mm_bwd_inputs(torch, case, seed=SEED):
     return (on_card(torch, g, offset), mix, mask)
 
 
+def mm_bf16_inputs(torch, case, seed=SEED):
+    """(mix, mask) of a MM_BF16_CASES shape: mm_inputs's mix, and its mask
+    rounded to a bfloat16 tensor whose data starts `offset` bfloat16
+    elements into its storage."""
+    b, f, t, c, offset = case
+    mix, mask32 = mm_inputs(torch, (b, f, t, c, offset))
+    buf = torch.empty(mask32.numel() + offset, dtype=torch.bfloat16, device="cuda")
+    mask = buf[offset:].view(mask32.shape)
+    mask.copy_(mask32)
+    return mix, mask
+
+
+def mm_bf16_bwd_inputs(torch, case, seed=SEED):
+    """(g, mix, mask) of a MM_BF16_CASES shape."""
+    g, _, _ = mm_bwd_inputs(torch, case, seed)
+    return (g, *mm_bf16_inputs(torch, case, seed))
+
+
 def ola_inputs(torch, case, seed=SEED):
     """(frames,) of an OLA_CASES shape, from a numpy seed."""
     import numpy as np
@@ -401,6 +514,34 @@ def mm_bwd_work(case):
     return 5 * n * 4, 10 * n, blocks, threads
 
 
+def mm_bf16_work(case):
+    """mm_work for a bfloat16 mask: 4 + 2 bytes read and 4 written an
+    element (10, against the float32 pair's 12); the same grid (the vector
+    kernel needs the mask on an 8-byte boundary, which offset 0 gives)."""
+    n = math.prod(case[:4])
+    _, nops, blocks, threads = mm_work(case)
+    return 10 * n, nops, blocks, threads
+
+
+def mm_bf16_bwd_work(case):
+    """mm_bwd_work for a bfloat16 mask: g, mix and the mask read (4 + 4 +
+    2 bytes), dmix and a float32 dmask written (8)."""
+    n = math.prod(case[:4])
+    _, nops, blocks, threads = mm_bwd_work(case)
+    return 18 * n, nops, blocks, threads
+
+
+def path_counts(kernels, expected):
+    """The launch counts of the kernels `expected` names, read just after a
+    path's run; any other kernel that launched (a bfloat16-mask variant on
+    a float32 path, or the reverse) fails the phase."""
+    counts = kernels.launch_counts(variants=True)
+    stray = {k: v for k, v in counts.items() if k not in expected and v}
+    if stray:
+        fail(f"kernels launched that the path does not run: {stray}")
+    return {k: counts[k] for k in expected}
+
+
 def check_phase(torch, kernels):
     """Phase 3a: every kernel against its plain version at every case shape.
     Returns {kernel: max abs error at the path shape}."""
@@ -431,14 +572,50 @@ def check_phase(torch, kernels):
             fail(f"overlap_add {label} {case}: not bitwise equal to the plain version (max abs err {err})")
         errs.setdefault("overlap_add", 0.0)
         print(f"check overlap_add {label} {case[:6]} offset {case[6]}: bitwise equal", flush=True)
+    for label, case in MM_BF16_CASES.items():
+        mix, mask = mm_bf16_inputs(torch, case)
+        before = kernels.masked_mix_slice16_bf16.launches
+        out = kernels.masked_mix_slice16(mix, mask)
+        if kernels.masked_mix_slice16_bf16.launches != before + 1 or out.dtype != torch.float32:
+            fail(f"masked_mix_slice16_bf16 {label}: no variant launch or a {out.dtype} output")
+        err = float((out - kernels.masked_mix_slice16_plain(mix, mask)).abs().max())
+        g, _, _ = mm_bf16_bwd_inputs(torch, case)
+        (dmix, dmask), (pmix, pmask) = (kernels.masked_mix_slice16_bwd(g, mix, mask),
+                                        kernels.masked_mix_slice16_bwd_plain(g, mix, mask))
+        bwd_err = max(float((dmix - pmix).abs().max()), float((dmask - pmask).abs().max()))
+        torch.cuda.synchronize()
+        if not (err <= KERNEL_TOL and bwd_err <= KERNEL_TOL and dmask.dtype == torch.float32):
+            fail(f"masked_mix_slice16 bf16-mask {label} {case}: max abs error {err}, backward "
+                 f"{bwd_err} (tol {KERNEL_TOL}), dmask {dmask.dtype}")
+        errs.setdefault("masked_mix_slice16_bf16", err)
+        errs.setdefault("masked_mix_slice16_bwd_bf16", bwd_err)
+        print(f"check masked_mix_slice16 bf16 mask {label} {case[:4]} offset {case[4]}: max abs "
+              f"err {err:.3e}; backward {bwd_err:.3e}", flush=True)
+    mix, mask = mm_bf16_inputs(torch, MM_BF16_CASES["B=1"])
+    for pair in ((mix, mask.to(torch.float16)), (mix.to(torch.bfloat16), mask)):
+        try:
+            kernels.masked_mix_slice16(*pair)
+        except TypeError as e:
+            print(f"check masked_mix_slice16 refuses the pair: {e}", flush=True)
+        else:
+            fail(f"masked_mix_slice16 took a {pair[0].dtype} mix with a {pair[1].dtype} mask")
     return errs
+
+
+# the shape of each kernel's row in the JSON line: the float32 forwards at
+# the eval path's, the backward and the bfloat16-mask variants at the
+# training shape (the PPO epoch's B=280)
+JSON_SHAPE = {"masked_mix_slice16": "path", "overlap_add": "path",
+              "masked_mix_slice16_bwd": "train", "masked_mix_slice16_bf16": "train",
+              "masked_mix_slice16_bwd_bf16": "train"}
 
 
 def time_phase(torch, kernels, errs):
     """Phase 3b: times and bounds at the paths' shapes (and overlap_add at
     the whole-signal B=16 shape it was first timed at). Returns the JSON
-    rows, one per kernel: the forwards at the eval path's shapes, the
-    backward at the training shape; the other shapes are printed."""
+    rows, one per kernel at its JSON_SHAPE; the other shapes are printed."""
+    from move2hear_tpu_torch.ops import build
+
     empty = build_empty()
     timed = [  # name, label, kernel, plain, inputs, work
         ("masked_mix_slice16", "path", kernels.masked_mix_slice16, kernels.masked_mix_slice16_plain,
@@ -467,6 +644,13 @@ def time_phase(torch, kernels, errs):
         ("masked_mix_slice16_bwd", "path", kernels.masked_mix_slice16_bwd,
          kernels.masked_mix_slice16_bwd_plain, mm_bwd_inputs(torch, MM_CASES["path"]),
          mm_bwd_work(MM_CASES["path"])),
+        *[("masked_mix_slice16_bf16", label, kernels.masked_mix_slice16_bf16,
+           kernels.masked_mix_slice16_plain, mm_bf16_inputs(torch, MM_BF16_CASES[label]),
+           mm_bf16_work(MM_BF16_CASES[label]))
+          for label in ("collect", "train", "pretrain", "B=1", "bench-collect", "bench-train")],
+        ("masked_mix_slice16_bwd_bf16", "train", kernels.masked_mix_slice16_bwd_bf16,
+         kernels.masked_mix_slice16_bwd_plain, mm_bf16_bwd_inputs(torch, MM_BF16_CASES["train"]),
+         mm_bf16_bwd_work(MM_BF16_CASES["train"])),
         ("overlap_add", "path", ola_call(kernels, OLA_CASES["path"]),
          ola_call(kernels, OLA_CASES["path"], plain=True),
          ola_inputs(torch, OLA_CASES["path"]), ola_work(OLA_CASES["path"])),
@@ -478,16 +662,19 @@ def time_phase(torch, kernels, errs):
     for name, label, kern, plain, args, (nbytes, nops, blocks, threads) in timed:
         t0 = time.perf_counter()
         copies = l2_cold_copies(*args)
-        ms, plain_ms = device_ms(kern, copies), device_ms(plain, copies)
-        hot_ms = device_ms(kern, [args])
+        # a graph keeps every call's output: 20 calls of the bench shape's
+        # PPO epoch (0.29 GB out each) where the others take 100
+        n = 100 if nbytes < 2e8 else 20
+        ms, plain_ms = device_ms(kern, copies, n), device_ms(plain, copies, n)
+        hot_ms = device_ms(kern, [args], n)
         floor_ms = device_ms(lambda: empty(blocks, threads), [()])
         eager, eager_plain = eager_ms(lambda: kern(*args)), eager_ms(lambda: plain(*args))
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        if (label == "path") != (name == "masked_mix_slice16_bwd"):
+        if label == JSON_SHAPE[name]:
             rows[name] = {
                 "name": name, "route": "cuda",
-                "source": f"move2hear_tpu_torch/csrc/{name}.cu",
+                "source": f"move2hear_tpu_torch/csrc/{build.VARIANT_OF.get(name, name)}.cu",
                 "replaces": REPLACES[name], "launches": None, "max_abs_err": errs[name],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -559,7 +746,7 @@ def run_eval(torch, kernels, run_dir, runs: int):
         kernels.reset_launch_counts()
         trainer = port_main(argv)
         torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        counts = path_counts(kernels, EVAL_LAUNCHES)
         results.append((counts, trainer.last_eval[1], time.perf_counter() - t0, trainer.last_eval[0]))
     return results, os.path.join(run_dir, f"{cfg.EVAL.SPLIT}_stats_ckpt_0_{cfg.SEED}.json")
 
@@ -594,10 +781,12 @@ PRETRAIN_EXP = os.path.join(REPO, "configs", "pretrain_passive.yaml")
 
 
 def pretrain_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
-                   launches=PRETRAIN_LAUNCHES):
-    """Phase 6: the pretrain CLI at full width for PRETRAIN_EPOCHS epochs,
-    with the launch counters set to 0 just before it and read just after.
-    Returns (the pretrain path's launch counts, its checkpoint folder).
+                   launches=PRETRAIN_LAUNCHES, label="pretrain", epochs=PRETRAIN_EPOCHS,
+                   stats=None):
+    """Phase 6 (and 8m's bf16-pretrain): the pretrain CLI at full width for
+    `epochs` epochs, with the launch counters set to 0 just before it and
+    read just after. Returns (the pretrain path's launch counts, its
+    checkpoint folder); `stats`, if given, receives the warm samples/s.
     (`device`, `opts` and `launches` let a rehearsal run it small on the
     CPU.)"""
     import numpy as np
@@ -609,20 +798,20 @@ def pretrain_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
     kernels.reset_launch_counts()
     trainer = port_main(["--run-type", "train", "--exp-config", PRETRAIN_EXP, "--model-dir",
                          run_dir, "--device", device, "Pretrain.Passive.NUM_EPOCHS",
-                         str(PRETRAIN_EPOCHS), *opts])
+                         str(epochs), *opts])
     if device == "cuda":
         torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = path_counts(kernels, launches)
     wall = time.perf_counter() - t0
     if counts != launches:
-        fail(f"pretrain-path kernel launches {counts}, expected {launches}")
-    epochs = trainer.epoch_log
-    if len(epochs) != PRETRAIN_EPOCHS:
-        fail(f"pretrain ran {len(epochs)} epochs, expected {PRETRAIN_EPOCHS}")
+        fail(f"{label}-path kernel launches {counts}, expected {launches}")
+    n_epochs, epochs = epochs, trainer.epoch_log
+    if len(epochs) != n_epochs:
+        fail(f"{label} ran {len(epochs)} epochs, expected {n_epochs}")
     for i, (e, h) in enumerate(zip(epochs, trainer._val_history)):
         if not np.isfinite([*h["train"], *h["val"], *h["nonoverlapping_val"]]).all():
-            fail(f"pretrain epoch {i}: losses not finite: {h}")
-        phase("pretrain", t0, (
+            fail(f"{label} epoch {i}: losses not finite: {h}")
+        phase(label, t0, (
             f"epoch {i} ({'cold' if i == 0 else 'warm'}): {e['train_samples']} train samples and "
             f"2 val batches in {e['seconds']:.3f} s; train bin {h['train'][0]:.6f} mono "
             f"{h['train'][1]:.6f}, val mono {h['val'][1]:.6f}, nonoverlapping val mono "
@@ -630,9 +819,11 @@ def pretrain_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
         ))
     warm = epochs[1:]
     rate = sum(e["train_samples"] for e in warm) / sum(e["seconds"] for e in warm)
-    print(f"pretrain: set-up {trainer.setup_s:.3f} s, cold first epoch {epochs[0]['seconds']:.3f} s, "
+    if stats is not None:
+        stats["warm_rate"] = rate
+    print(f"{label}: set-up {trainer.setup_s:.3f} s, cold first epoch {epochs[0]['seconds']:.3f} s, "
           f"warm pretrain {rate:.1f} samples/s (epochs 2-{len(epochs)}; {card}), end to end "
-          f"{wall:.3f} s; pretrain-path launches: {counts}", flush=True)
+          f"{wall:.3f} s; {label}-path launches: {counts}", flush=True)
     folder = trainer.config.CHECKPOINT_FOLDER
     for name in ("best_ckpt_val.pth", "best_ckpt_nonoverlapping_val.pth"):
         path = os.path.join(folder, name)
@@ -666,7 +857,7 @@ def pretrain_eval_phase(torch, kernels, ckpt_dir, run_dir, device="cuda", opts=(
                     "EVAL_CKPT_PATH_DIR", ckpt_dir, *opts])
     if device == "cuda":
         torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = path_counts(kernels, launches)
     if counts != launches:
         fail(f"pretrain-eval kernel launches {counts}, expected {launches}")
     if len(ev.last_eval) != 2:
@@ -706,7 +897,7 @@ def train_phase(torch, kernels, card, run_dir, label="train", exp=TRAIN_EXP, dev
                          "RL.PPO.pretrained_passive_separators_ckpt", pretrained, *opts])
     if device == "cuda":
         torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = path_counts(kernels, launches)
     wall = time.perf_counter() - t0
     if counts != launches:
         fail(f"{label}-path kernel launches {counts}, expected {launches}")
@@ -778,7 +969,7 @@ def scale_train_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
     trainer.train()
     if on_cuda:
         torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = path_counts(kernels, launches)
     wall = time.perf_counter() - t0
     if counts != launches:
         fail(f"scale-train-path kernel launches {counts}, expected {launches}")
@@ -1077,7 +1268,7 @@ def far_eval_phase(torch, kernels, card, run_dir, nav_ckpt, qi_ckpt, device="cud
                         "EVAL_CKPT_PATH_DIR", switch, *opts])
         if device == "cuda":
             torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        counts = path_counts(kernels, launches)
         wall = time.perf_counter() - t0
         if counts != launches:
             fail(f"far-eval kernel launches {counts}, expected {launches}")
@@ -1166,7 +1357,7 @@ def host_train_phase(torch, kernels, card, run_dir, fixture_opts, device="cuda",
                          run_dir, "--device", device, *argv])
     if device == "cuda":
         torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = path_counts(kernels, launches)
     wall = time.perf_counter() - t0
     if trainer._rir_mode != "host":
         fail(f"host-train: the gate chose {trainer._rir_mode!r}, not the host env path")
@@ -1227,7 +1418,7 @@ def host_eval_phase(torch, kernels, card, run_dir, fixture_opts, ckpt, switch_ck
                         path, "EVAL_EPISODE_COUNT", str(n), *fixture_opts, *opts])
         if device == "cuda":
             torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        counts = path_counts(kernels, want)
         wall = time.perf_counter() - t0
         agg, tm = ev.last_eval
         if ev._eval_route != "host":
@@ -1967,6 +2158,276 @@ def ddppo_phase(torch, card, run_dir, pretrained, device="cuda:0", opts=(),
     return {k: sum(rep["launches"][k] for rep in ranks) for k in launches}
 
 
+def mfu_line(info, rate, card_name):
+    """MFU of a warm rate from ``mfu_info``: flops_per_env_step x env-steps/s
+    over the card's dense bfloat16 tensor-core peak (BF16_PEAK_FLOPS)."""
+    peak = BF16_PEAK_FLOPS.get(card_name)
+    achieved = info["flops_per_env_step"] * rate
+    if peak is None:
+        return (f"{achieved / 1e12:.3f} TFLOP/s counted; MFU not computed: no bfloat16 peak for "
+                f"{card_name!r}")
+    return (f"{achieved / 1e12:.3f} TFLOP/s counted = MFU {100 * achieved / peak[0]:.4f}% of "
+            f"{peak[0] / 1e12:.0f} TFLOP/s ({peak[1]})")
+
+
+def print_mfu_info(label, info):
+    if info is None:
+        fail(f"{label}: REPORT_MFU left mfu_info None")
+    print(f"{label} mfu_info: " + ", ".join(
+        f"{k} {v:.6e}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in info.items() if k != "method") + f"; method: {info['method']}", flush=True)
+
+
+def bf16_train_phase(torch, kernels, card, run_dir, pretrained, f32_rate, device="cuda",
+                     opts=(), launches=BF16_TRAIN_LAUNCHES):
+    """Phase 8j: phase 8's train CLI with BF16_OPTS, then the eval CLI on
+    its checkpoint. Returns (the path's launch counts, its checkpoint)."""
+    on_cuda = device == "cuda"
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counts, ckpt, trainer = train_phase(torch, kernels, card, run_dir, label="bf16-train",
+                                        device=device, opts=[*BF16_OPTS, *opts],
+                                        launches=launches, pretrained=pretrained)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else float("nan")
+    if trainer.final_policy.dtype != torch.bfloat16:
+        fail(f"bf16-train: the policy computes in {trainer.final_policy.dtype}")
+    warm = trainer.cycle_log[1]
+    rate = warm["env_steps"] / warm["total"]
+    print_mfu_info("bf16-train", trainer.mfu_info)
+    name = torch.cuda.get_device_name(0) if on_cuda else "cpu"
+    print(f"bf16-train: set-up {trainer.setup_s:.3f} s, warm {rate:.1f} env-steps/s against phase "
+          f"8's float32 {f32_rate:.1f} in this run; {mfu_line(trainer.mfu_info, rate, name)}; "
+          f"peak device memory allocated {peak:.2f} GB ({card})", flush=True)
+    train_eval_phase(run_dir, ckpt, device=device, opts=opts)
+    return counts, ckpt
+
+
+def bench_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=BENCH_LAUNCHES,
+                scene=BENCH_SCENE):
+    """Phase 8k: bench.py's default device-mode shape through the port's
+    own config (no exp yaml, BENCH_OPTS) and micro-scene, 2 cycles, with
+    the launch counters set to 0 just before it and read just after.
+    Returns the path's launch counts. (`opts`, `launches` and `scene` let a
+    rehearsal run it small on the CPU.)"""
+    import numpy as np
+
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.micro_scene import build_micro_scene
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    cfg = get_config(None, [*BENCH_OPTS, *opts], run_dir, "train")
+    bundle = build_micro_scene(**scene)
+    on_cuda = device == "cuda"
+    if on_cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer = PPOTrainer(cfg, bundle=bundle, device=device)
+    trainer.train()
+    if on_cuda:
+        torch.cuda.synchronize()
+    counts = path_counts(kernels, launches)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else float("nan")
+    if counts != launches:
+        fail(f"bench-shape-path kernel launches {counts}, expected {launches}")
+    if trainer._rir_mode != "dense" or len(trainer.cycle_log) != 2:
+        fail(f"bench-shape: route {trainer._rir_mode}, {len(trainer.cycle_log)} cycles")
+    for i, c in enumerate(trainer.cycle_log):
+        phase("bench-shape", t0, (
+            f"cycle {i} ({'cold, FLOPs counted' if i == 0 else 'warm'}): {c['env_steps']} "
+            f"env-steps in {c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; "
+            f"collect {c['collect']:.3f} s, policy update {c['update']:.3f} s, refit "
+            f"{c['refit']:.3f} s ({card})"
+        ))
+    for i, (pol, sep) in enumerate(trainer.loss_log):
+        if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
+            fail(f"bench-shape cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
+    print_mfu_info("bench-shape", trainer.mfu_info)
+    warm = trainer.cycle_log[1]
+    rate = warm["env_steps"] / warm["total"]
+    name = torch.cuda.get_device_name(0) if on_cuda else "cpu"
+    print(f"bench-shape: {cfg.NUM_PROCESSES} envs, hidden {cfg.RL.PPO.hidden_size}, bfloat16; "
+          f"set-up {trainer.setup_s:.3f} s, warm {rate:.1f} env-steps/s, end to end "
+          f"{sum(c['env_steps'] for c in trainer.cycle_log) / wall:.1f} over {wall:.3f} s; "
+          f"{mfu_line(trainer.mfu_info, rate, name)}; peak device memory allocated {peak:.2f} GB; "
+          f"bench-shape-path launches: {counts} ({card})", flush=True)
+    return counts
+
+
+def bf16_sub_phase(torch, run_dir, device="cuda", opts=(), fixture=SCALE_PARITY_FIXTURE,
+                   scale=SCALE_FIXTURE):
+    """Phase 8l: TPU.SUB_BANK_DTYPE bfloat16 on the scale-parity fixture:
+    the slab's gather against the dense bank rounded to bfloat16, and one
+    cycle's losses against the float32 slab's; then the slab the gate
+    reckons for the scale fixture at 2 bytes a sample. (`opts`, `fixture`
+    and `scale` let a rehearsal run it small on the CPU.)"""
+    import dataclasses
+
+    import numpy as np
+
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.env.micro_scene import build_scale_fixture
+    from move2hear_tpu_torch.env.sub_bank import RirSubBank, row_bytes
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+
+    t0 = time.perf_counter()
+    bundle = build_scale_fixture(**fixture)
+    dense = de.build_device_bundle(bundle, device, rir_mode="dense")
+    sub_dev = de.build_device_bundle(bundle, device, rir_mode="sub")
+    order = de.make_order_table(14, len(bundle.episodes), SEED)
+    sub = RirSubBank(bundle.scenes, bundle.audio_db, sub_dev.episodes.scene_idx.cpu().numpy(),
+                     sub_dev.episodes.sources.cpu().numpy(), order, 20, 20,
+                     v_pad=int(sub_dev.scene.positions.shape[1]), device=device,
+                     dtype=torch.bfloat16)
+    slab, table = sub.rollout_inputs()
+    sub_dev = dataclasses.replace(sub_dev, rir_sub_bank=slab, ep_src_row=table)
+    obs = de.observe(dense.episodes, de.env_reset_all(dense.scene, dense.episodes,
+                                                      torch.as_tensor(order, device=device)))
+    got = de.gather_sensors(sub_dev, obs)["rirs"]
+    want = de.gather_sensors(dense, obs)["rirs"]
+    if got.dtype != torch.float32 or not torch.equal(got, want.to(torch.bfloat16).float()):
+        fail("bf16-sub: the bfloat16 slab's gather is not the dense bank rounded to bfloat16")
+    phase("bf16-sub", t0, f"slab {tuple(slab.shape)} {slab.dtype}, {sub.row_bytes / 1e6:.2f} MB "
+                          f"a row: the gather is bitwise the dense bank rounded to bfloat16")
+    del dense, sub_dev, sub, slab
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = get_config(TRAIN_EXP, ["NUM_UPDATES", "6", "RL.PPO.pretrained_passive_separators_ckpt",
+                                     "", "TPU.RIR_MODE", "sub", "TPU.SUB_BANK_DTYPE", dtype,
+                                     *opts],
+                         os.path.join(run_dir, dtype), "train")
+        trainer = PPOTrainer(cfg, bundle=bundle, device=device)
+        trainer.train()
+        losses[dtype] = [np.concatenate([p.ravel(), s.ravel()]) for p, s in trainer.loss_log][0]
+        if trainer._sub_bank.dtype != getattr(torch, dtype):
+            fail(f"bf16-sub: a {trainer._sub_bank.dtype} slab under SUB_BANK_DTYPE {dtype}")
+        phase("bf16-sub", t0, f"one cycle on the {dtype} slab: losses {losses[dtype].tolist()}")
+        del trainer
+    a, b = losses["bfloat16"], losses["float32"]
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-2)))
+    if not rel <= BF16_SUB_LOSS_REL:
+        fail(f"bf16-sub: losses part from the float32 slab's by {rel} > {BF16_SUB_LOSS_REL}")
+    big = build_scale_fixture(**scale)
+    reckoner = PPOTrainer(get_config(TRAIN_EXP, ["TPU.SUB_BANK_DTYPE", "bfloat16", *opts],
+                                     os.path.join(run_dir, "reckon"), "train"), bundle=big,
+                          device=device)
+    v = max(s.num_nodes for s in big.scenes.values())
+    rows = reckoner.sub_bank_rows(big, v)
+    print(f"bf16-sub: losses within {rel:.3e} of the float32 slab's (relative, or absolute below "
+          f"1e-2; tol {BF16_SUB_LOSS_REL}); the scale fixture's slab at 2 bytes a sample: {rows} "
+          f"rows x {row_bytes(v, big.audio_db.rir_length, 2) / 1e6:.1f} MB = "
+          f"{rows * row_bytes(v, big.audio_db.rir_length, 2) / 1e9:.2f} GB (float32: "
+          f"{rows * row_bytes(v, big.audio_db.rir_length, 4) / 1e9:.2f} GB for as many rows; "
+          f"reckoned, not allocated)", flush=True)
+
+
+def bf16_parity_phase(torch, devices=("cuda", "cpu"), b=4, hid=512):
+    """Phase 8m's bf16-parity: the bfloat16 policy's separator chain and
+    deterministic act on the card against the CPU's bfloat16, under the CPU
+    tests' discriminator with the CPU's float32 as the yardstick, at full
+    width. Each stage after the first takes the CPU bfloat16 chain's inputs
+    on both sides (tests/test_torch_bf16_models.py), so each is weighed on
+    its own rounding. (`devices` and `hid` let a rehearsal run it on the
+    CPU alone.)"""
+    import numpy as np
+
+    from move2hear_tpu_torch.models import Move2HearPolicy
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    inp = {
+        "rgb": rng.integers(0, 256, (b, 128, 128, 3)).astype(np.uint8),
+        "depth": rng.uniform(0, 1, (b, 128, 128, 1)).astype(np.float32),
+        "mixed_bin_audio_mag": np.abs(rng.standard_normal((b, 512, 32, 2))).astype(np.float32),
+        "target_class": rng.integers(0, 10, (b, 1)).astype(np.int64),
+    }
+    hidden = rng.standard_normal((b, hid)).astype(np.float32)
+    masks = (rng.uniform(size=(b, 1)) > 0.3).astype(np.float32)
+    prev = rng.standard_normal((b, 512, 32, 1)).astype(np.float32)
+    torch.manual_seed(SEED + 3)
+    weights = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True).state_dict()
+
+    def run(device, dtype, feed=None):
+        """The chain's outputs; with `feed` (the CPU's bfloat16 outputs) each
+        stage after the first takes feed's inputs, in the run's dtype."""
+        policy = Move2HearPolicy(3, hid, extra_depth=True, use_ddppo=True, dtype=dtype)
+        policy.load_state_dict(weights)
+        policy = policy.to(device).eval()
+        on = {k: torch.from_numpy(v).to(device) for k, v in inp.items()}
+        fed = None if feed is None else {
+            k: torch.from_numpy(feed[k]).to(device, torch.bfloat16).to(dtype)
+            for k in ("binSep masks", "bin2mono", "acoustic mem")}
+        with torch.no_grad():
+            pm = policy.get_binSepMasks(on)
+            pm_in = pm if fed is None else fed["binSep masks"]
+            mono = policy.convert_bin2mono(pm_in, on["mixed_bin_audio_mag"])
+            mono_in = mono if fed is None else fed["bin2mono"]
+            mem = policy.get_monoFromMem(mono_in, torch.from_numpy(prev).to(device))
+            mem_in = mem if fed is None else fed["acoustic mem"]
+            act = policy.act(on, torch.from_numpy(hidden).to(device),
+                             torch.from_numpy(masks).to(device), pm_in, mono_in, mem_in,
+                             deterministic=True)
+        out = {"binSep masks": pm, "bin2mono": mono, "acoustic mem": mem, "value": act.value,
+               "hidden": act.hidden, "probs": act.probs}
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    cpu = run(devices[1], torch.bfloat16)
+    card, ref = run(devices[0], torch.bfloat16, cpu), run(devices[1], torch.float32, cpu)
+    worst = []
+    for k in card:
+        port_err = float(np.abs(card[k] - cpu[k]).mean())
+        dtype_err = float(np.abs(cpu[k] - ref[k]).mean())
+        ratio = dtype_err / max(port_err, 1e-30)
+        top = float(np.abs(card[k] - cpu[k]).max())
+        floor = BF16_MAX_ULPS * 2.0**-7 * float(np.abs(ref[k]).max())
+        if not (ratio >= BF16_RATIO and top <= floor):
+            fail(f"bf16-parity {k}: mean |card - cpu| {port_err:.3e} is {ratio:.2f}x below mean "
+                 f"|cpu bf16 - cpu f32| {dtype_err:.3e} (need {BF16_RATIO}); max {top:.3e} "
+                 f"(floor {floor:.3e})")
+        worst.append(f"{k} {ratio:.1f}x (max {top:.2e})")
+    phase("bf16-parity", t0, f"{devices[0]} bf16 vs {devices[1]} bf16, {devices[1]} float32 the "
+                             f"yardstick, hidden {hid}, B={b}: mean-error ratios " + ", ".join(worst))
+
+
+def bf16_host_eval_phase(torch, kernels, card, run_dir, ckpt, device="cuda", opts=(),
+                         episodes=2, launches=BF16_HOST_EVAL_LAUNCHES):
+    """Phase 8m's host eval: the eval CLI with configs/test/nearTarget.yaml
+    on 8j's checkpoint, `episodes` episodes (below DEVICE_EVAL_MIN_EPISODES:
+    the host evaluator) in bfloat16, with the launch counters set to 0 just
+    before it and read just after. Returns its launch counts."""
+    from move2hear_tpu_torch.main import main as port_main
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    ev = port_main(["--run-type", "eval", "--exp-config",
+                    os.path.join(REPO, "configs", "test", "nearTarget.yaml"), "--model-dir",
+                    os.path.join(run_dir, "bf16_host_eval"), "--device", device,
+                    "EVAL_CKPT_PATH_DIR", ckpt, "EVAL_EPISODE_COUNT", str(episodes),
+                    "TPU.DEVICE_EVAL_MIN_EPISODES", str(episodes + 1),
+                    "TPU.COMPUTE_DTYPE", "bfloat16", *opts])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = path_counts(kernels, launches)
+    agg, tm = ev.last_eval
+    if ev._eval_route != "host" or counts != launches:
+        fail(f"bf16-host-eval: the {ev._eval_route} evaluator, launches {counts}, expected "
+             f"{launches}")
+    for k in ("mono_l2_last", "mem_l2_last", "bin_l2_all"):
+        if not all(math.isfinite(v) for v in agg[k].values()):
+            fail(f"bf16-host-eval: {k} not finite: {agg[k]}")
+    phase("bf16-host-eval", t0, (
+        f"{tm['episodes']} episodes, {tm['env_steps'] / tm['loop_s']:.1f} env-steps/s over the "
+        f"episode loop; mono_l2_last {agg['mono_l2_last']['mean']:.6f}, mem_l2_last "
+        f"{agg['mem_l2_last']['mean']:.6f}; bf16-host-eval-path launches: {counts} ({card})"
+    ))
+    return counts
+
+
 def host_phases(torch, kernels, card, run_dir, pretrained, switch_ckpt):
     """Phases 8e-8h in the run directory; the fixture is removed after them.
     Returns the host paths' launch counts by path."""
@@ -2009,17 +2470,19 @@ def main():
     ))
 
     t0 = time.perf_counter()
-    for name in build.SIGNATURES:
+    for name in build.SOURCES:
         lib = build.library_path(name)
         if os.path.exists(lib):
             os.remove(lib)  # always build from the checkout's sources
     secs = build.build_all()
     for name in build.SIGNATURES:
         build.load(name)
+    for name in build.SOURCES:
         for line in build.BUILD_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    phase("build", t0, f"{len(build.SIGNATURES)} CUDA sources built by nvcc in {secs:.2f} s")
+    phase("build", t0, f"{len(build.SOURCES)} CUDA sources built by nvcc in {secs:.2f} s, "
+                       f"{len(build.SIGNATURES)} launchers bound")
 
     rows = time_phase(torch, kernels, check_phase(torch, kernels))
     run_dir = os.path.join(REPO, "_smoke_run")
@@ -2032,12 +2495,16 @@ def main():
     parity_phase(torch)
     os.makedirs(run_dir)
     try:
+        pre_stats, bf16_pre_stats = {}, {}
         pre_launches, pre_ckpts = pretrain_phase(torch, kernels, card,
-                                                 os.path.join(run_dir, "pretrain"))
+                                                 os.path.join(run_dir, "pretrain"),
+                                                 stats=pre_stats)
         pre_eval_launches = pretrain_eval_phase(torch, kernels, pre_ckpts, run_dir)
         pretrained = os.path.join(pre_ckpts, "best_ckpt_nonoverlapping_val.pth")
-        train_launches, near_ckpt, _ = train_phase(torch, kernels, card, run_dir,
-                                                   pretrained=pretrained)
+        train_launches, near_ckpt, near_trainer = train_phase(torch, kernels, card, run_dir,
+                                                              pretrained=pretrained)
+        f32_warm = near_trainer.cycle_log[1]
+        del near_trainer
         train_eval_phase(run_dir, near_ckpt)
         far_train_launches, far_ckpt, far_trainer = train_phase(
             torch, kernels, card, os.path.join(run_dir, "far"), label="far-train",
@@ -2052,6 +2519,19 @@ def main():
         host_launches = host_phases(torch, kernels, card, run_dir, pretrained,
                                     os.path.join(run_dir, "switch.pth"))
         ddppo_launches = ddppo_phase(torch, card, os.path.join(run_dir, "ddppo"), pretrained)
+        bf16_launches, bf16_ckpt = bf16_train_phase(
+            torch, kernels, card, os.path.join(run_dir, "bf16"), pretrained,
+            f32_warm["env_steps"] / f32_warm["total"])
+        bench_launches = bench_phase(torch, kernels, card, os.path.join(run_dir, "bench"))
+        bf16_sub_phase(torch, os.path.join(run_dir, "bf16_sub"))
+        bf16_pre_launches, _ = pretrain_phase(
+            torch, kernels, card, os.path.join(run_dir, "bf16_pretrain"),
+            opts=["TPU.COMPUTE_DTYPE", "bfloat16"], launches=BF16_PRETRAIN_LAUNCHES,
+            label="bf16-pretrain", epochs=BF16_PRETRAIN_EPOCHS, stats=bf16_pre_stats)
+        print(f"bf16-pretrain: warm {bf16_pre_stats['warm_rate']:.1f} samples/s against phase 6's "
+              f"float32 {pre_stats['warm_rate']:.1f} in this run ({card})", flush=True)
+        bf16_parity_phase(torch)
+        bf16_host_eval_launches = bf16_host_eval_phase(torch, kernels, card, run_dir, bf16_ckpt)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)
@@ -2060,10 +2540,13 @@ def main():
     by_path = {"eval": launches, "train": train_launches, "pretrain": pre_launches,
                "pretrain_eval": pre_eval_launches, "far_train": far_train_launches,
                "far_eval": far_eval_launches, "scale_train": scale_launches, **host_launches,
-               "ddppo_train": ddppo_launches}
+               "ddppo_train": ddppo_launches, "bf16_train": bf16_launches,
+               "bench_shape": bench_launches, "bf16_pretrain": bf16_pre_launches,
+               "bf16_host_eval": bf16_host_eval_launches}
     for name, row in rows.items():
-        # the launches of every path's runs
-        row["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+        # the launches of every path's runs (path_counts failed any path
+        # that launched a kernel it does not name)
+        row["launches_by_path"] = {path: counts.get(name, 0) for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

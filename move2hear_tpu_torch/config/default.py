@@ -6,9 +6,10 @@ BASE_TASK_CONFIG YAML -> CLI opts, then frozen.
 
 The keys are the JAX package's, so the YAMLs under configs/ merge
 unchanged. Of its `TPU` group the port keeps, under the same name, only the
-keys its code reads: DEVICE_ENV, DEVICE_EVAL_MIN_EPISODES, MAX_RIR_LENGTH,
-PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, SUB_BANK_ROWS, SUB_BANK_DTYPE,
-SUB_PREFETCH, RIR_MODE and STATS_FETCH_INTERVAL.
+keys its code reads: COMPUTE_DTYPE, DEVICE_ENV, DEVICE_EVAL_MIN_EPISODES,
+MAX_RIR_LENGTH, PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, SEP_SLAB_DTYPE,
+SEP_REFIT_DTYPE, SUB_BANK_ROWS, SUB_BANK_DTYPE, SUB_PREFETCH, RIR_MODE,
+STATS_FETCH_INTERVAL and REPORT_MFU.
 """
 
 import os
@@ -110,6 +111,9 @@ def default_config() -> Config:
 
     # --- device-route knobs (the JAX package's `TPU` group) ---------------
     c.TPU = Config()
+    c.TPU.COMPUTE_DTYPE = "float32"  # or "bfloat16": the policy's compute
+    # dtype in training, the host evaluator and the pretrain (parameters,
+    # Adam state and losses stay float32); the device evaluator runs float32
     c.TPU.DEVICE_ENV = True          # evaluate on the batched device env
     c.TPU.DEVICE_EVAL_MIN_EPISODES = 64  # route eval to the batched device
     # evaluator at/above this episode count; below it the host evaluator
@@ -125,13 +129,20 @@ def default_config() -> Config:
     c.TPU.SUB_BANK_ROWS = 0  # slots of the RIR sub-bank (env/sub_bank.py);
     # 0 = one window's need grown into the budget the fixed banks leave, at
     # most one a (scene, source) key
-    c.TPU.SUB_BANK_DTYPE = "float32"  # slab storage; bfloat16 is not ported yet
+    c.TPU.SEP_SLAB_DTYPE = "float32"  # or "bfloat16": storage of the
+    # separator refit's three (T_total, N, 512, 32, 1) slabs
+    c.TPU.SEP_REFIT_DTYPE = ""  # "bfloat16" or "float32": the compute dtype
+    # of the acoustic-memory refit only; "" keeps COMPUTE_DTYPE
+    c.TPU.SUB_BANK_DTYPE = "float32"  # or "bfloat16": the sub-bank slab's
+    # storage; the gather widens rows to float32 for the render
     c.TPU.SUB_PREFETCH = True  # assemble and upload the next window's rows
     # after each policy update is queued, while the device runs it
     c.TPU.RIR_MODE = "auto"  # dense, sub or host forces that route, skipping
     # the MAX_DEVICE_BANK_BYTES gate
     c.TPU.STATS_FETCH_INTERVAL = 2  # the trainer fetches the packed logging
     # stats to the host every N cycles
+    c.TPU.REPORT_MFU = False  # count the FLOPs of the first training cycle
+    # and expose them as trainer.mfu_info (device path, a world of one)
 
     c.TASK_CONFIG = default_task_config()
     return c

@@ -25,7 +25,13 @@
 // is the plain version's arithmetic up to the library's expf/expm1f. The
 // training path never runs this backward (its inputs are stored tensors), so
 // it is kept simple; vector loads wait for a path that launches it.
+//
+// The bfloat16-mask variant (masked_mix_slice16_bwd_bf16_launch) takes the
+// forward's other pair, a float32 mix with a bfloat16 mask, widens each mask
+// element to float32 on load and writes dmask in float32, as the JAX custom
+// VJP computes it; autograd casts it to the mask's dtype.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,10 +46,16 @@ __device__ __forceinline__ float2 masked_log1p_bwd(float x, float m, float gd) {
   return make_float2(__fmul_rn(__fmul_rn(du, expf(x)), m), __fmul_rn(du, e));
 }
 
-// One thread per (b, f, t), all C channels; any 4-byte aligned pointers.
+__device__ __forceinline__ float load1(const float* p, int i) { return p[i]; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+
+// One thread per (b, f, t), all C channels; any element-aligned pointers.
+template <typename MaskT>
 __global__ void __launch_bounds__(kThreads) masked_mix_slice16_bwd_kernel(
     const float* __restrict__ g, const float* __restrict__ mix,
-    const float* __restrict__ mask, float* __restrict__ dmix,
+    const MaskT* __restrict__ mask, float* __restrict__ dmix,
     float* __restrict__ dmask, int F, int T, int C, int K, int fk) {
   const int fp = blockIdx.x * blockDim.y + threadIdx.y;
   if (fp >= fk) return;
@@ -54,11 +66,31 @@ __global__ void __launch_bounds__(kThreads) masked_mix_slice16_bwd_kernel(
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
     for (int c = 0; c < C; ++c) {
       const int i = row + t * C + c;
-      const float2 r = masked_log1p_bwd(mix[i], mask[i], gr[c * c_stride + t]);
+      const float2 r = masked_log1p_bwd(mix[i], load1(mask, i), gr[c * c_stride + t]);
       dmix[i] = r.x;
       dmask[i] = r.y;
     }
   }
+}
+
+template <typename MaskT>
+int launch(const void* g, const void* mix, const void* mask, void* dmix, void* dmask,
+           int B, int F, int T, int C, int K, void* stream) {
+  if (B == 0 || F == 0 || T == 0 || C == 0) return 0;
+  const int fk = F / K;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* gg = (const float*)g;
+  const float* a = (const float*)mix;
+  const MaskT* m = (const MaskT*)mask;
+  float* dx = (float*)dmix;
+  float* dm = (float*)dmask;
+  // threadIdx.x walks the time steps of a row, threadIdx.y the rows f'
+  const int tx = T < 32 ? T : 32;
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const dim3 grid((fk + ty - 1) / ty, K, B);
+  masked_mix_slice16_bwd_kernel<MaskT><<<grid, block, 0, s>>>(gg, a, m, dx, dm, F, T, C, K, fk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -69,19 +101,13 @@ extern "C" int masked_mix_slice16_bwd_launch(const void* g, const void* mix,
                                              const void* mask, void* dmix,
                                              void* dmask, int B, int F, int T,
                                              int C, int K, void* stream) {
-  if (B == 0 || F == 0 || T == 0 || C == 0) return 0;
-  const int fk = F / K;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* gg = (const float*)g;
-  const float* a = (const float*)mix;
-  const float* m = (const float*)mask;
-  float* dx = (float*)dmix;
-  float* dm = (float*)dmask;
-  // threadIdx.x walks the time steps of a row, threadIdx.y the rows f'
-  const int tx = T < 32 ? T : 32;
-  const int ty = kThreads / tx;
-  const dim3 block(tx, ty);
-  const dim3 grid((fk + ty - 1) / ty, K, B);
-  masked_mix_slice16_bwd_kernel<<<grid, block, 0, s>>>(gg, a, m, dx, dm, F, T, C, K, fk);
-  return (int)cudaGetLastError();
+  return launch<float>(g, mix, mask, dmix, dmask, B, F, T, C, K, stream);
+}
+
+// A float32 mix with a bfloat16 mask; dmask is float32. The same checks.
+extern "C" int masked_mix_slice16_bwd_bf16_launch(const void* g, const void* mix,
+                                                  const void* mask, void* dmix,
+                                                  void* dmask, int B, int F, int T,
+                                                  int C, int K, void* stream) {
+  return launch<__nv_bfloat16>(g, mix, mask, dmix, dmask, B, F, T, C, K, stream);
 }

@@ -365,10 +365,12 @@ def observe(episodes: DeviceEpisodes, state: DeviceEnvState) -> DeviceObs:
 def _gather_rirs(bundle: DeviceBundle, obs: DeviceObs) -> torch.Tensor:
     """(N, S_mix, R, 2) raw RIRs of each env's sources at its azimuth and
     receiver node: from the dense bank, or from the sub-bank slab through
-    the episode -> slot table."""
+    the episode -> slot table (a bfloat16 slab's rows widened to float32
+    for the render)."""
     if bundle.rir_sub_bank is not None:
         rows = bundle.ep_src_row[obs.ep]  # (N, S_mix) slab slots
-        return bundle.rir_sub_bank[rows, obs.azimuth_idx[:, None], obs.node[:, None]]
+        rirs = bundle.rir_sub_bank[rows, obs.azimuth_idx[:, None], obs.node[:, None]]
+        return rirs.float() if rirs.dtype == torch.bfloat16 else rirs
     return bundle.rir_bank[
         obs.scene_idx[:, None], obs.azimuth_idx[:, None], obs.node[:, None], obs.sources
     ]

@@ -27,6 +27,10 @@ This module keeps a preallocated device slab of such rows and an
 
 The collect's gather becomes ``slab[ep_src_row[ep], azimuth, node]``
 (``env/device_env.py:gather_sensors``), bitwise equal to the dense gather.
+A bfloat16 slab (``TPU.SUB_BANK_DTYPE``) halves the slab and the uploads:
+rows are rounded to bfloat16 on the host (torch's cast, round to nearest
+even) before they are cached and uploaded, and the gather widens them to
+float32 for the render.
 """
 
 import math
@@ -171,7 +175,7 @@ def _count_unique_keys(bundle) -> int:
 
 
 class RirSubBank:
-    """A preallocated ``(capacity, 4, V_pad, R, 2)`` float32 slab of
+    """A preallocated ``(capacity, 4, V_pad, R, 2)`` slab (of `dtype`) of
     per-(scene, source) RIR rows on ``device`` and the episode -> slot
     table, refreshed per rollout window. ``row_bytes`` is the size of one
     row. Counters: ``rows_assembled``,
@@ -192,6 +196,7 @@ class RirSubBank:
         v_pad: int,
         capacity: Optional[int] = None,
         device="cpu",
+        dtype: torch.dtype = torch.float32,
     ):
         self._scene_list = [scenes[k] for k in sorted(scenes)]
         self._audio_db = audio_db
@@ -212,10 +217,11 @@ class RirSubBank:
             capacity if capacity is not None
             else sub_bank_capacity(n_envs, s_mix, t_steps, horizon, n_keys)
         )
-        self.row_bytes = row_bytes(self._v_pad, self._rir_len)
+        self.dtype = dtype
+        self.row_bytes = row_bytes(self._v_pad, self._rir_len, dtype.itemsize)
         device = torch.device(device)
         self._slab = torch.zeros(
-            (self.capacity, 4, self._v_pad, self._rir_len, 2), dtype=torch.float32, device=device
+            (self.capacity, 4, self._v_pad, self._rir_len, 2), dtype=dtype, device=device
         )
         self._key_to_slot: Dict[Tuple[int, int], int] = {}
         self._slot_key: List[Optional[Tuple[int, int]]] = [None] * self.capacity
@@ -234,7 +240,7 @@ class RirSubBank:
         # host LRU cache of assembled rows, by bytes: evicted device rows
         # that come back (cyclic episode orders) skip re-assembly. With a
         # slot for every key no row is evicted, and none comes back.
-        self._host_cache: "OrderedDict[Tuple[int, int], np.ndarray]" = OrderedDict()
+        self._host_cache: "OrderedDict[Tuple[int, int], torch.Tensor]" = OrderedDict()
         self._host_cache_budget = HOST_CACHE_BYTES if self.capacity < n_keys else 0
         self._host_cache_bytes = 0
         self.rows_uploaded = 0
@@ -253,35 +259,38 @@ class RirSubBank:
             row[az_i, :v] = self._audio_db.get_rir_block(scene.name, az, src, v)
         return row
 
-    def _row_for(self, key: Tuple[int, int]) -> np.ndarray:
-        """The row of `key`, through the host LRU cache."""
+    def _row_for(self, key: Tuple[int, int]) -> torch.Tensor:
+        """The row of `key` in the slab's dtype, through the host LRU cache
+        (a bfloat16 row is cast before it is cached: half the bytes)."""
         row = self._host_cache.get(key)
         if row is not None:
             self._host_cache.move_to_end(key)
             return row
-        row = self._assemble_row(key)
+        row = torch.from_numpy(self._assemble_row(key)).to(self.dtype)
         self.rows_assembled += 1
         if self._host_cache_budget > 0:
             self._host_cache[key] = row
-            self._host_cache_bytes += row.nbytes
+            self._host_cache_bytes += self.row_bytes
             while self._host_cache_bytes > self._host_cache_budget:
-                _, old = self._host_cache.popitem(last=False)
-                self._host_cache_bytes -= old.nbytes
+                self._host_cache.popitem(last=False)
+                self._host_cache_bytes -= self.row_bytes
         return row
 
-    def _pinned(self, array: np.ndarray, buf, done):
-        """`array` copied into the pinned buffer `buf` (made on first use),
-        once the event `done` behind its last copy has passed."""
+    def _pinned(self, array, buf, done):
+        """`array` (an ndarray or a CPU tensor) copied into the pinned
+        buffer `buf` (made on first use), once the event `done` behind its
+        last copy has passed."""
+        src = torch.as_tensor(array)
         if buf is None:
-            buf = torch.empty(array.shape, dtype=torch.from_numpy(array).dtype, pin_memory=True)
+            buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
         elif done is not None:
             done.synchronize()
-        buf.copy_(torch.from_numpy(array))
+        buf.copy_(src)
         return buf
 
-    def _upload_row(self, slot: int, row: np.ndarray) -> None:
+    def _upload_row(self, slot: int, row: torch.Tensor) -> None:
         if not self._on_cuda:
-            self._slab[slot].copy_(torch.from_numpy(row))
+            self._slab[slot].copy_(row)
             return
         i = self._next_staging
         self._next_staging = (i + 1) % len(self._staging)
@@ -369,7 +378,7 @@ class RirSubBank:
             row = self._row_for(k)
             self._upload_row(slot, row)
             self.rows_uploaded += 1
-            self.bytes_uploaded += row.nbytes
+            self.bytes_uploaded += self.row_bytes
 
     # -- per-rollout API ---------------------------------------------------
     def rollout_inputs(self) -> Tuple[torch.Tensor, torch.Tensor]:

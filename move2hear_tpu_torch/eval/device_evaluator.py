@@ -17,6 +17,7 @@ follow eval_metrics.py:172-199.
 """
 
 import json
+import logging
 import os
 import pickle
 import time
@@ -34,6 +35,8 @@ from move2hear_tpu_torch.ops.frontend import render_binaural_mixture_pre
 from move2hear_tpu_torch.ops.stft import istft_mag_phase
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
+
+logger = logging.getLogger(__name__)
 
 SI_METRIC_NAMES = [
     "si_sdr", "si_sir", "si_sar", "sd_sdr", "snr", "srr",
@@ -244,25 +247,29 @@ def make_device_eval(
     return eval_episodes
 
 
-def _policy(cfg, state_dict, num_actions: int, device) -> Move2HearPolicy:
-    """The policy of `cfg`, loading `state_dict` strictly (a reference
-    checkpoint that was not converted raises, naming the import script)."""
+def _policy(cfg, state_dict, num_actions: int, device,
+            dtype: torch.dtype = torch.float32) -> Move2HearPolicy:
+    """The policy of `cfg` in compute dtype `dtype`, loading `state_dict`
+    strictly (a reference checkpoint that was not converted raises, naming
+    the import script)."""
     refuse_reference_layout(state_dict, "the evaluated checkpoint")
     p = cfg.RL.PPO
     policy = Move2HearPolicy(
         num_actions=num_actions, hidden_size=p.hidden_size,
         extra_rgb=cfg.EXTRA_RGB, extra_depth=cfg.EXTRA_DEPTH, use_ddppo=p.use_ddppo,
+        dtype=dtype,
     )
     policy.load_state_dict(state_dict)
     return policy.to(device).eval()
 
 
-def eval_policies(cfg, ckpt: dict, num_actions: int, device):
+def eval_policies(cfg, ckpt: dict, num_actions: int, device,
+                  dtype: torch.dtype = torch.float32):
     """(navigation policy, quality-improvement policy) of a loaded
-    checkpoint: the two policies of a switch checkpoint under
-    RL.PPO.switch_policy, else its one policy twice."""
+    checkpoint, in compute dtype `dtype`: the two policies of a switch
+    checkpoint under RL.PPO.switch_policy, else its one policy twice."""
     if not cfg.RL.PPO.switch_policy:
-        policy = _policy(cfg, ckpt["state_dict"], num_actions, device)
+        policy = _policy(cfg, ckpt["state_dict"], num_actions, device, dtype)
         return policy, policy
     if "state_dict_nav" not in ckpt or "state_dict_qualImprov" not in ckpt:
         raise KeyError(
@@ -270,8 +277,8 @@ def eval_policies(cfg, ckpt: dict, num_actions: int, device):
             f"{sorted(ckpt)}: merge one with scripts/torch_merge_switch_ckpt.py "
             "NAV_CKPT QUALIMPROV_CKPT OUT_CKPT"
         )
-    return (_policy(cfg, ckpt["state_dict_nav"], num_actions, device),
-            _policy(cfg, ckpt["state_dict_qualImprov"], num_actions, device))
+    return (_policy(cfg, ckpt["state_dict_nav"], num_actions, device, dtype),
+            _policy(cfg, ckpt["state_dict_qualImprov"], num_actions, device, dtype))
 
 
 def default_eval_bundle(cfg):
@@ -343,7 +350,12 @@ def setup_device_eval(
     p = cfg.RL.PPO
     switch = p.switch_policy
     action_codes = tuple(int(Action[a]) for a in cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
+    # float32 whatever TPU.COMPUTE_DTYPE says, as the JAX package's device
+    # evaluator (move2hear_tpu/eval/device_evaluator.py builds its policy
+    # without a dtype)
     policy_nav, policy_qi = eval_policies(cfg, ckpt, len(action_codes), device)
+    logger.info("device evaluator: float32 compute (TPU.COMPUTE_DTYPE %s)",
+                cfg.TPU.get("COMPUTE_DTYPE", "float32"))
     if bundle is None:
         bundle = default_eval_bundle(cfg)
     # the count clamp of ppo_trainer.py:1058-1078

@@ -45,6 +45,7 @@ from move2hear_tpu_torch.eval.device_evaluator import (
 from move2hear_tpu_torch.eval.metrics import stft_l2_distance
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+from move2hear_tpu_torch.utils.misc import tpu_dtype
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
 
 logger = logging.getLogger(__name__)
@@ -121,8 +122,10 @@ def evaluate_checkpoint(
     switch = p.switch_policy
     device = torch.device(device)
     possible_actions = tuple(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS)
+    dtype = tpu_dtype(cfg.TPU, "COMPUTE_DTYPE")
     policy_nav, policy_qi = eval_policies(cfg, load_checkpoint(checkpoint_path),
-                                          len(possible_actions), device)
+                                          len(possible_actions), device, dtype)
+    logger.info("host evaluator: %s compute (TPU.COMPUTE_DTYPE)", str(dtype).replace("torch.", ""))
     if bundle is None:
         bundle = default_eval_bundle(cfg)
     episodes = eval_episodes_of(cfg, bundle)

@@ -5,28 +5,29 @@ channels 32/64/32, ReLU after each) + Linear -> output_size + ReLU, over
 
 Input modes: bin mode ``log1p(clamp(mask * expm1(mix), 0))`` through the
 ``masked_mix_slice16`` kernel; monoNmonoFromMem mode
-``log1p(clamp(concat(pred_mono, pred_monoFromMem), 0))``.
+``log1p(clamp(concat(pred_mono, pred_monoFromMem), 0))``. `dtype` is the
+compute dtype of the convolutions and the dense layer (``models/unet.py``).
 """
 
 import torch
 from torch import nn
 
-from move2hear_tpu_torch.models.unet import init_dense_
+from move2hear_tpu_torch.models.unet import Conv2d, Linear, init_dense_
 from move2hear_tpu_torch.ops.kernels import masked_mix_slice16
 from move2hear_tpu_torch.ops.spec import slice16_nchw
 
 
 class AudioCNN(nn.Module):
     def __init__(self, output_size: int = 512, encode_mono_n_mono_from_mem: bool = False,
-                 generator=None):
+                 generator=None, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encode_mono_n_mono_from_mem = encode_mono_n_mono_from_mem
         self.cnn = nn.Sequential(
-            nn.Conv2d(32, 32, 8, stride=4), nn.ReLU(),
-            nn.Conv2d(32, 64, 4, stride=2), nn.ReLU(),
-            nn.Conv2d(64, 32, 2, stride=1), nn.ReLU(),
+            Conv2d(32, 32, 8, stride=4, compute_dtype=dtype), nn.ReLU(),
+            Conv2d(32, 64, 4, stride=2, compute_dtype=dtype), nn.ReLU(),
+            Conv2d(64, 32, 2, stride=1, compute_dtype=dtype), nn.ReLU(),
             nn.Flatten(),
-            nn.Linear(32, output_size), nn.ReLU(),
+            Linear(32, output_size, compute_dtype=dtype), nn.ReLU(),
         )
         for layer in self.cnn:
             if isinstance(layer, (nn.Conv2d, nn.Linear)):

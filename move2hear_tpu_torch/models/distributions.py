@@ -2,12 +2,15 @@
 ``common/utils.py:16-50`` and ``rl/ppo/policy.py:15-23``). Both heads are
 linear layers with orthogonal weights and zero bias: gain 0.01 for the
 action logits, so the initial policy is close to uniform, and 1 for the
-critic."""
+critic. Under a compute dtype both layers run in it (``models/unet.py``) and
+hand the logits and the value back as float32, as the JAX package's."""
 
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from move2hear_tpu_torch.models.unet import Linear
 
 
 class Categorical:
@@ -51,26 +54,30 @@ class Categorical:
         return -torch.sum(self.probs() * self.log_probs_all, dim=-1)
 
 
-def _orthogonal_linear(num_inputs: int, num_outputs: int, gain: float, generator=None):
-    layer = nn.Linear(num_inputs, num_outputs)
+def _orthogonal_linear(num_inputs: int, num_outputs: int, gain: float, generator=None,
+                       dtype=torch.float32):
+    layer = Linear(num_inputs, num_outputs, compute_dtype=dtype)
     nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
     nn.init.zeros_(layer.bias)
     return layer
 
 
 class CategoricalNet(nn.Module):
-    def __init__(self, num_inputs: int, num_actions: int, generator=None):
+    def __init__(self, num_inputs: int, num_actions: int, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear = _orthogonal_linear(num_inputs, num_actions, 0.01, generator)
+        self.linear = _orthogonal_linear(num_inputs, num_actions, 0.01, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> Categorical:
-        return Categorical(self.linear(x))
+        logits = self.linear(x)
+        return Categorical(logits if self.linear.compute_dtype is None else logits.float())
 
 
 class CriticHead(nn.Module):
-    def __init__(self, num_inputs: int, generator=None):
+    def __init__(self, num_inputs: int, generator=None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc = _orthogonal_linear(num_inputs, 1, 1.0, generator)
+        self.fc = _orthogonal_linear(num_inputs, 1, 1.0, generator, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc(x)
+        value = self.fc(x)
+        return value if self.fc.compute_dtype is None else value.float()

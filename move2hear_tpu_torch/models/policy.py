@@ -10,6 +10,10 @@ Gradient islands as in the JAX package (its ``stop_gradient``s are
 inputs are detached, giving {pol_net, action_dist, critic}, {acoustic_mem}
 and the frozen passive separators. ``evaluate_actions`` does not detach:
 its inputs are rollout storage.
+
+`dtype` (``TPU.COMPUTE_DTYPE``) is every module's compute dtype, flax's
+``dtype=`` (``models/unet.py``): parameters stay float32, the separators'
+outputs come in it, the action logits and the value as float32.
 """
 
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -41,20 +45,21 @@ class PolicyNet(nn.Module):
     2*hidden GRU input."""
 
     def __init__(self, hidden_size: int = 512, extra_rgb: bool = False,
-                 extra_depth: bool = False, generator=None):
+                 extra_depth: bool = False, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         blind = extra_rgb and extra_depth
         self.visual_encoder = (
             None if blind else VisualCNN(hidden_size, extra_rgb, extra_depth,
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
         )
-        self.bin_encoder = AudioCNN(hidden_size, generator=generator)
+        self.bin_encoder = AudioCNN(hidden_size, generator=generator, dtype=dtype)
         self.monoNmonoFromMem_encoder = AudioCNN(
-            hidden_size, encode_mono_n_mono_from_mem=True, generator=generator
+            hidden_size, encode_mono_n_mono_from_mem=True, generator=generator, dtype=dtype
         )
         n_feats = 2 if blind else 3
         self.state_encoder = GRUStateEncoder(n_feats * hidden_size, hidden_size,
-                                             generator=generator)
+                                             generator=generator, dtype=dtype)
 
     def features(self, observations, pred_binSepMasks, pred_mono, pred_monoFromMem):
         """A precomputed ``visual_feats`` entry (the evaluator's per-pose
@@ -111,17 +116,20 @@ class Move2HearPolicy(nn.Module):
 
     def __init__(self, num_actions: int = 4, hidden_size: int = 512,
                  extra_rgb: bool = False, extra_depth: bool = False,
-                 use_ddppo: bool = False, generator: Optional[torch.Generator] = None):
+                 use_ddppo: bool = False, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden_size = hidden_size
-        self.pol_net = PolicyNet(hidden_size, extra_rgb, extra_depth, generator=generator)
-        self.action_dist = CategoricalNet(hidden_size, num_actions, generator=generator)
-        self.critic = CriticHead(hidden_size, generator=generator)
-        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=generator)
-        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=generator)
-        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=generator)
-        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=generator)
-        self.acoustic_mem = AcousticMem(use_ddppo=use_ddppo, generator=generator)
+        self.dtype = dtype
+        g, dt = generator, dtype
+        self.pol_net = PolicyNet(hidden_size, extra_rgb, extra_depth, generator=g, dtype=dt)
+        self.action_dist = CategoricalNet(hidden_size, num_actions, generator=g, dtype=dt)
+        self.critic = CriticHead(hidden_size, generator=g, dtype=dt)
+        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=g, dtype=dt)
+        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=g, dtype=dt)
+        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=g, dtype=dt)
+        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=g, dtype=dt)
+        self.acoustic_mem = AcousticMem(use_ddppo=use_ddppo, generator=g, dtype=dt)
 
     def visual_features(self, rgb=None, depth=None) -> torch.Tensor:
         """Pol-net visual encodings for a batch of poses."""
@@ -216,14 +224,18 @@ class Move2HearPassiveWoMemoryPolicy(nn.Module):
     ``pretrain/passive/policy.py:47-97``): the two passive separator pairs
     under ``Move2HearPolicy``'s names, so the RL trainer copies their
     weights by name. BatchNorm follows the module's mode (``train()`` for
-    the pretrain step, ``eval()`` for its validation)."""
+    the pretrain step, ``eval()`` for its validation); `dtype` is the
+    compute dtype, as ``Move2HearPolicy``'s."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None):
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=generator)
-        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=generator)
-        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=generator)
-        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=generator)
+        g, dt = generator, dtype
+        self.dtype = dtype
+        self.binSep_enc = PassiveSepEncoder(convert_bin2mono=False, generator=g, dtype=dt)
+        self.binSep_dec = PassiveSepDecoder(convert_bin2mono=False, generator=g, dtype=dt)
+        self.bin2mono_enc = PassiveSepEncoder(convert_bin2mono=True, generator=g, dtype=dt)
+        self.bin2mono_dec = PassiveSepDecoder(convert_bin2mono=True, generator=g, dtype=dt)
 
     def get_binSepMasks(self, observations: Observations) -> torch.Tensor:
         bottleneck, skips = self.binSep_enc(

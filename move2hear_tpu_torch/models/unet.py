@@ -15,6 +15,13 @@ outputs keep the sensor layout (B, F, T, C). BatchNorm follows the module's
 mode: batch statistics in training mode (the passive pretrain), running
 statistics in eval mode (evaluation and the RL path).
 
+A compute dtype (``TPU.COMPUTE_DTYPE`` bfloat16) is flax's ``dtype=``: each
+convolution and dense layer casts its input, weight and bias to it and
+adds the bias after the product, rounding twice as flax does; parameters
+stay float32. BatchNorm runs in float32 on a float32 copy of its input, as
+the JAX package's ``dtype=jnp.float32`` BatchNorm, and hands float32 on.
+``None`` (float32) runs each layer as its ``nn`` class does.
+
 The weight initialisers of every port module live here, as the JAX
 package's do (``move2hear_tpu/models/unet.py``); the other modules import
 them. Each takes an optional ``torch.Generator``.
@@ -65,6 +72,50 @@ def kaiming_relu_(weight, generator=None):
     return variance_scaling_(weight, _DEC_SCALE, generator)
 
 
+def compute_dtype_of(dtype: Optional[torch.dtype]) -> Optional[torch.dtype]:
+    """The layers' compute dtype for a module's `dtype`: None (no cast) for
+    float32, so a float32 model runs the ``nn`` layers unchanged, and a
+    float64 copy of one (the parity tests') stays float64."""
+    return None if dtype in (None, torch.float32) else dtype
+
+
+class _Cast:
+    """flax's ``dtype=`` for a layer with ``weight`` and ``bias``, built with
+    ``compute_dtype=``: ``forward(x, dtype=None)`` runs in `dtype`, else in
+    the layer's ``compute_dtype``; None or float32 is the ``nn`` class's
+    own forward."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype_of(compute_dtype)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dt = compute_dtype_of(self.compute_dtype if dtype is None else dtype)
+        if dt is None:
+            return super().forward(x)
+        y = self._product(x.to(dt), self.weight.to(dt))
+        if self.bias is None:
+            return y
+        b = self.bias.to(dt)
+        return y + (b if y.ndim == 2 else b.reshape(-1, 1, 1))
+
+
+class Conv2d(_Cast, nn.Conv2d):
+    def _product(self, x, w):
+        return self._conv_forward(x, w, None)
+
+
+class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
+    def _product(self, x, w):
+        return F.conv_transpose2d(x, w, None, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(_Cast, nn.Linear):
+    def _product(self, x, w):
+        return F.linear(x, w)
+
+
 def init_dense_(layer: nn.Module, generator=None) -> None:
     """A Conv2d or Linear of the policy's CNNs: ``kaiming_relu`` weight,
     zero bias (flax's default)."""
@@ -91,6 +142,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a bfloat16 input is normalised in the statistics' dtype, float32
+        x = x.to(self.running_mean.dtype)
         if not self.training:
             return super().forward(x)
         if world_size() > 1:
@@ -140,15 +193,17 @@ class PassiveSepEncoder(nn.Module):
     sliced ``log1p(clamp(mask * expm1(mix), 0))``, 32 channels, from the
     ``masked_mix_slice16`` kernel.
 
-    Returns (bottleneck (B, 512), skip features deepest-first, NCHW)."""
+    Returns (bottleneck (B, 512), skip features deepest-first, NCHW).
+    `dtype`: the compute dtype of the convolutions (module docstring)."""
 
-    def __init__(self, convert_bin2mono: bool = False, generator=None):
+    def __init__(self, convert_bin2mono: bool = False, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.convert_bin2mono = convert_bin2mono
         in_ch = 2 * SLICE_FACTOR + (0 if convert_bin2mono else 1)
         blocks = []
         for out_ch in ENC_CHANNELS:
-            conv = nn.Conv2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False)
+            conv = Conv2d(in_ch, out_ch, 4, stride=2, padding=1, bias=False, compute_dtype=dtype)
             kaiming_leaky_(conv.weight, generator)
             blocks.append(nn.Sequential(conv, BatchNorm2d(out_ch), nn.LeakyReLU(0.2)))
             in_ch = out_ch
@@ -179,19 +234,20 @@ class PassiveSepEncoder(nn.Module):
 class PassiveSepDecoder(nn.Module):
     """U-Net decoder with skip concat; every block is ConvT->BN->ReLU, then
     a 1x1 conv with bias and no activation. Output (B, 512, 32, C) with
-    C = 1 (bin2mono) or 2 (binaural masks)."""
+    C = 1 (bin2mono) or 2 (binaural masks), in the compute dtype `dtype`."""
 
-    def __init__(self, convert_bin2mono: bool = False, generator=None):
+    def __init__(self, convert_bin2mono: bool = False, generator=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         n_out = SLICE_FACTOR if convert_bin2mono else 2 * SLICE_FACTOR
         ins = (512, 1024, 512, 256, 128)
         outs = (512, 256, 128, 64, n_out)
         blocks = []
         for i, o in zip(ins, outs):
-            conv = nn.ConvTranspose2d(i, o, 4, stride=2, padding=1, bias=False)
+            conv = ConvTranspose2d(i, o, 4, stride=2, padding=1, bias=False, compute_dtype=dtype)
             kaiming_relu_(conv.weight, generator)
             blocks.append(nn.Sequential(conv, BatchNorm2d(o), nn.ReLU()))
-        out_conv = nn.Conv2d(n_out, n_out, 1)
+        out_conv = Conv2d(n_out, n_out, 1, compute_dtype=dtype)
         init_dense_(out_conv, generator)
         blocks.append(nn.Sequential(out_conv))
         self.cnn = nn.ModuleList(blocks)

@@ -1,8 +1,8 @@
 """Builds the hand-written CUDA kernels under ``csrc/`` and binds them.
 
-Each ``csrc/<name>.cu`` exports a plain C launcher (``<name>_launch``) that
-takes device pointers, sizes and a stream and returns the launch's
-``cudaGetLastError``. At first use every source is compiled by ``nvcc`` for
+Each ``csrc/<name>.cu`` exports plain C launchers (``<name>_launch``, and
+for a variant ``<variant>_launch``) that take device pointers, sizes and a
+stream and return the launch's ``cudaGetLastError``. At first use every source is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``_build/`` (listed in
 ``.gitignore``), one ``nvcc`` per source and all started together, and the
 library is loaded with ``ctypes``. Library names carry a hash of the source
@@ -33,13 +33,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # mix, mask, out, B, F, T, C, K
     "masked_mix_slice16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same with a bfloat16 mask
+    "masked_mix_slice16_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # g, mix, mask, dmix, dmask, B, F, T, C, K
     "masked_mix_slice16_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same with a bfloat16 mask
+    "masked_mix_slice16_bwd_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # frames, win, inv_env, out, B, n_frames, n_fft, hop, start, length
     "overlap_add": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # blocks, threads: the launch floor chip_smoke.py measures, on no path
     "empty": (_I, _I, _P),
 }
+
+# the source of a launcher that is a variant in another kernel's file
+VARIANT_OF = {
+    "masked_mix_slice16_bf16": "masked_mix_slice16",
+    "masked_mix_slice16_bwd_bf16": "masked_mix_slice16_bwd",
+}
+# the csrc/ sources, one library each
+SOURCES = tuple(n for n in SIGNATURES if n not in VARIANT_OF)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -67,8 +79,8 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> float:
-    """Compile every library of `names` that is not built yet, all in
+def build_all(names: Sequence[str] = SOURCES) -> float:
+    """Compile every library of the sources `names` not built yet, all in
     parallel. Returns the wall seconds spent; raises with nvcc's output if
     any build fails."""
     t0 = time.perf_counter()
@@ -104,13 +116,14 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes library of kernel `name`, building all kernels at first
-    use. Its launcher's argtypes and restype are set."""
+    """The ctypes library of launcher `name` (a kernel or a variant),
+    building all kernels at first use. Its launcher's argtypes and restype
+    are set."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(library_path(name))
+            lib = ctypes.CDLL(library_path(VARIANT_OF.get(name, name)))
             fn = getattr(lib, name + "_launch")
             fn.argtypes = list(SIGNATURES[name])
             fn.restype = ctypes.c_int

@@ -16,6 +16,12 @@ counts the kernel launches, so a run can show that it went through them.
    ``masked_mix_slice16_bwd`` (``csrc/masked_mix_slice16_bwd.cu``), which
    replaces the JAX custom VJP ``pallas_kernels.py:_masked_mix_slice16_bwd``
    and reads the cotangent through the inverse slice in its load index.
+   Both take a float32 mix with a float32 or a bfloat16 mask (the
+   separators' output under ``TPU.COMPUTE_DTYPE`` bfloat16) and write
+   float32; the bfloat16-mask variants read the mask as bfloat16 and count
+   their launches apart (``masked_mix_slice16_bf16``,
+   ``masked_mix_slice16_bwd_bf16``). The mask gradient comes back float32,
+   and autograd casts it to the mask's dtype.
 2. ``overlap_add`` (``csrc/overlap_add.cu``) replaces
    ``move2hear_tpu/ops/pallas_kernels.py:_ola_kernel``: the ISTFT
    overlap-add of Hann-windowed frames times the inverse squared-window
@@ -38,13 +44,16 @@ from move2hear_tpu_torch.ops.spec import (
 )
 
 
-def _require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+def _require_cuda(name: str, tensors, pairs=((torch.float32,),)) -> None:
+    """`tensors` on one CUDA device, contiguous, with dtypes equal to one of
+    the kernel's `pairs` (one dtype a tensor)."""
     dev = tensors[0].device
+    got = tuple(t.dtype for t in tensors)
+    if got not in pairs:
+        raise TypeError(f"{name}: dtypes {got}; the kernel takes {list(pairs)}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     if dev.type != "cuda":
@@ -70,10 +79,17 @@ def _require_int32_grid(name: str, batch: int, *numels: int) -> None:
 # 1. fused masked-mix + log1p + slice16
 # ---------------------------------------------------------------------------
 
+# (mix, mask) dtypes the forward kernel takes, and the variant of each
+_MM_PAIRS = {(torch.float32, torch.float32): "masked_mix_slice16",
+             (torch.float32, torch.bfloat16): "masked_mix_slice16_bf16"}
+
+
 def masked_mix_slice16_plain(
     mixed_log_mag: torch.Tensor, mask: torch.Tensor, k: int = SLICE_FACTOR
 ) -> torch.Tensor:
-    """The plain version: (B, F, T, C) x (B, F, T, C) -> (B, C*k, F/k, T)."""
+    """The plain version: (B, F, T, C) x (B, F, T, C) -> (B, C*k, F/k, T),
+    in the mixture's dtype (a bfloat16 mask is widened to it, exactly)."""
+    mask = mask.to(mixed_log_mag.dtype)
     return slice16_nchw(apply_mask_log1p(mixed_log_mag, mask), k).contiguous()
 
 
@@ -93,21 +109,22 @@ def _check_mm_shapes(name: str, mixed_log_mag: torch.Tensor, mask: torch.Tensor)
 def _masked_mix_slice16_forward(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if _is_cpu(mixed_log_mag, mask):
         return masked_mix_slice16_plain(mixed_log_mag, mask)
-    _require_cuda_f32("masked_mix_slice16", mixed_log_mag, mask)
-    b, f, t, c = _check_mm_shapes("masked_mix_slice16", mixed_log_mag, mask)
+    _require_cuda("masked_mix_slice16", (mixed_log_mag, mask), tuple(_MM_PAIRS))
+    name = _MM_PAIRS[(mixed_log_mag.dtype, mask.dtype)]
+    b, f, t, c = _check_mm_shapes(name, mixed_log_mag, mask)
     k = SLICE_FACTOR
     out = torch.empty((b, c * k, f // k, t), dtype=torch.float32,
                       device=mixed_log_mag.device)
-    lib = build.load("masked_mix_slice16")
+    lib = build.load(name)
     with torch.cuda.device(mixed_log_mag.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.masked_mix_slice16_launch(
+        rc = getattr(lib, name + "_launch")(
             mixed_log_mag.data_ptr(), mask.data_ptr(), out.data_ptr(),
             b, f, t, c, k, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"masked_mix_slice16: launch failed, CUDA error {rc}")
-    masked_mix_slice16.launches += 1
+        raise RuntimeError(f"{name}: launch failed, CUDA error {rc}")
+    _ALL_WRAPPERS[name].launches += 1
     return out
 
 
@@ -130,11 +147,23 @@ def masked_mix_slice16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch
     """(B, F, T, C) x (B, F, T, C) -> NCHW (B, 16*C, F/16, T) with channel
     c*16 + chunk: ``slice16(log1p(clamp(expm1(mix) * mask, 0)))``.
     Differentiable in both inputs; a gradient is taken only when an input
-    requires one, so inference and the RL path never launch the backward."""
+    requires one, so inference and the RL path never launch the backward.
+    `mask` is float32 or bfloat16; the output is float32."""
     return _MaskedMixSlice16.apply(mixed_log_mag, mask)
 
 
 masked_mix_slice16.launches = 0
+
+
+def masked_mix_slice16_bf16(mixed_log_mag: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``masked_mix_slice16`` of a float32 mix and a bfloat16 mask: the
+    kernel's bfloat16-mask variant, whose launches this function counts."""
+    if mask.dtype != torch.bfloat16:
+        raise TypeError(f"masked_mix_slice16_bf16: mask {mask.dtype}, expected bfloat16")
+    return masked_mix_slice16(mixed_log_mag, mask)
+
+
+masked_mix_slice16_bf16.launches = 0
 
 
 def masked_mix_slice16_bwd_plain(
@@ -144,7 +173,9 @@ def masked_mix_slice16_bwd_plain(
     """The plain backward, the JAX custom VJP's formula: with
     u = expm1(mix) * mask and du = g / (1 + u) where u > 0 (else 0),
     (dmix, dmask) = (du * exp(mix) * mask, du * expm1(mix)), both
-    (B, F, T, C); `g` is the (B, C*k, F/k, T) cotangent of the output."""
+    (B, F, T, C) in the mixture's dtype; `g` is the (B, C*k, F/k, T)
+    cotangent of the output."""
+    mask = mask.to(mixed_log_mag.dtype)
     gd = deslice16_nchw(g, k)
     e = torch.expm1(mixed_log_mag)
     u = e * mask
@@ -159,8 +190,12 @@ def masked_mix_slice16_bwd(
     (B, 16*C, F/16, T); each (B, F, T, C)."""
     if _is_cpu(g, mixed_log_mag, mask):
         return masked_mix_slice16_bwd_plain(g, mixed_log_mag, mask)
-    _require_cuda_f32("masked_mix_slice16_bwd", g, mixed_log_mag, mask)
-    b, f, t, c = _check_mm_shapes("masked_mix_slice16_bwd", mixed_log_mag, mask)
+    f32 = torch.float32
+    _require_cuda("masked_mix_slice16_bwd", (g, mixed_log_mag, mask),
+                  tuple((f32,) + pair for pair in _MM_PAIRS))
+    name = _MM_PAIRS[(mixed_log_mag.dtype, mask.dtype)].replace(
+        "masked_mix_slice16", "masked_mix_slice16_bwd")
+    b, f, t, c = _check_mm_shapes(name, mixed_log_mag, mask)
     k = SLICE_FACTOR
     if g.shape != (b, c * k, f // k, t):
         raise ValueError(
@@ -168,21 +203,35 @@ def masked_mix_slice16_bwd(
             f"{(b, c * k, f // k, t)}"
         )
     dmix = torch.empty_like(mixed_log_mag)
-    dmask = torch.empty_like(mask)
-    lib = build.load("masked_mix_slice16_bwd")
+    dmask = torch.empty_like(mixed_log_mag)  # float32 for either mask
+    lib = build.load(name)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.masked_mix_slice16_bwd_launch(
+        rc = getattr(lib, name + "_launch")(
             g.data_ptr(), mixed_log_mag.data_ptr(), mask.data_ptr(),
             dmix.data_ptr(), dmask.data_ptr(), b, f, t, c, k, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"masked_mix_slice16_bwd: launch failed, CUDA error {rc}")
-    masked_mix_slice16_bwd.launches += 1
+        raise RuntimeError(f"{name}: launch failed, CUDA error {rc}")
+    _ALL_WRAPPERS[name].launches += 1
     return dmix, dmask
 
 
 masked_mix_slice16_bwd.launches = 0
+
+
+def masked_mix_slice16_bwd_bf16(
+    g: torch.Tensor, mixed_log_mag: torch.Tensor, mask: torch.Tensor
+) -> tuple:
+    """``masked_mix_slice16_bwd`` with a bfloat16 mask (a float32 dmask):
+    the backward's bfloat16-mask variant, whose launches this function
+    counts."""
+    if mask.dtype != torch.bfloat16:
+        raise TypeError(f"masked_mix_slice16_bwd_bf16: mask {mask.dtype}, expected bfloat16")
+    return masked_mix_slice16_bwd(g, mixed_log_mag, mask)
+
+
+masked_mix_slice16_bwd_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +297,7 @@ def overlap_add(
     win, inv_env = ola_tables(n_fft, hop, n_frames, str(frames.device))
     if _is_cpu(frames):
         return overlap_add_plain(frames, win, inv_env, hop, start, length)
-    _require_cuda_f32("overlap_add", frames)
+    _require_cuda("overlap_add", (frames,))
     _require_int32_grid("overlap_add", b, frames.numel(), b * length)
     out = torch.empty((b, length), dtype=torch.float32, device=frames.device)
     lib = build.load("overlap_add")
@@ -272,12 +321,21 @@ KERNEL_WRAPPERS = {
     "overlap_add": overlap_add,
     "masked_mix_slice16_bwd": masked_mix_slice16_bwd,
 }
+# the bfloat16-mask variants, counted apart from the float32 kernels
+VARIANT_WRAPPERS = {
+    "masked_mix_slice16_bf16": masked_mix_slice16_bf16,
+    "masked_mix_slice16_bwd_bf16": masked_mix_slice16_bwd_bf16,
+}
+_ALL_WRAPPERS = {**KERNEL_WRAPPERS, **VARIANT_WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
+    for fn in _ALL_WRAPPERS.values():
         fn.launches = 0
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+def launch_counts(variants: bool = False) -> dict:
+    """{kernel: launches} of the three kernels, and with `variants` of the
+    bfloat16-mask variants too."""
+    wrappers = _ALL_WRAPPERS if variants else KERNEL_WRAPPERS
+    return {name: fn.launches for name, fn in wrappers.items()}

@@ -22,8 +22,10 @@ pretrained_passive_separators_ckpt`` reads.
 
 The data comes from the reference's on-disk datasets when
 ``SIMULATOR.AUDIO.*`` points at them (``_file_sources``), else from the
-synthetic sources. Not ported yet: ``TPU.COMPUTE_DTYPE`` bfloat16 (ROADMAP
-Queue 1 item 5), refused.
+synthetic sources. ``TPU.COMPUTE_DTYPE`` bfloat16 runs the U-Nets in
+bfloat16 compute (``models/unet.py``) in training and checkpoint
+evaluation; parameters, Adam state, the losses and BatchNorm (its world
+statistics included) stay float32.
 
 In a world of ranks (``parallel/ddppo.py``, one device each; a
 ``TPU.MESH_SHAPE`` above one device is refused) every rank draws the same
@@ -69,6 +71,7 @@ from move2hear_tpu_torch.pretrain.dataset import (
 from move2hear_tpu_torch.rl.base_trainer import BaseRLTrainer
 from move2hear_tpu_torch.rl.ppo import ClippedAdam
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from move2hear_tpu_torch.utils.misc import tpu_dtype
 from move2hear_tpu_torch.utils.registry import registry
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
 
@@ -125,13 +128,9 @@ class PassiveTrainer(BaseRLTrainer):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PassiveTrainer: no CUDA device; pass --device cpu for the CPU")
+        self.dtype = tpu_dtype(config.TPU, "COMPUTE_DTYPE")
         # the config reader takes keys it does not know, so the JAX
         # package's knobs that this trainer would ignore are refused here
-        if str(config.TPU.get("COMPUTE_DTYPE", "float32")) != "float32":
-            raise NotImplementedError(
-                "TPU.COMPUTE_DTYPE other than float32 is not ported yet (ROADMAP "
-                "Queue 1 item 5)"
-            )
         if any(int(d) > 1 for d in config.TPU.get("MESH_SHAPE", [1])):
             raise NotImplementedError(
                 f"TPU.MESH_SHAPE={list(config.TPU.MESH_SHAPE)}: each rank of the port "
@@ -182,9 +181,9 @@ class PassiveTrainer(BaseRLTrainer):
     def new_policy(self) -> Move2HearPassiveWoMemoryPolicy:
         if self._weights is None:
             generator = torch.Generator().manual_seed(int(self.config.SEED))
-            policy = Move2HearPassiveWoMemoryPolicy(generator=generator)
+            policy = Move2HearPassiveWoMemoryPolicy(generator=generator, dtype=self.dtype)
         else:
-            policy = Move2HearPassiveWoMemoryPolicy()
+            policy = Move2HearPassiveWoMemoryPolicy(dtype=self.dtype)
             policy.load_state_dict(self._weights)
         return policy.to(self.device)
 
@@ -375,7 +374,7 @@ class PassiveTrainer(BaseRLTrainer):
         if not ckpts:
             raise FileNotFoundError(f"no checkpoints under {path}")
         rng = np.random.default_rng(self.config.SEED)
-        policy = Move2HearPassiveWoMemoryPolicy().to(self.device)
+        policy = Move2HearPassiveWoMemoryPolicy(dtype=self.dtype).to(self.device)
         self.last_eval = {}
         for ckpt_path in ckpts:
             policy.load_state_dict(load_checkpoint(ckpt_path)["state_dict"])

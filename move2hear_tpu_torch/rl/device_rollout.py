@@ -47,7 +47,10 @@ from move2hear_tpu_torch.rl.ppo import AgentState, PPOConfig, _epoch_perms, _ran
 class RolloutSepIdx:
     """(T_sep, N, ...) separator-refit buffer: the bank indices of every
     step and the frozen-separator outputs the memory refit consumes.
-    ``bin_l1`` / ``mono_l1`` are the per-step logging losses."""
+    ``bin_l1`` / ``mono_l1`` are the per-step logging losses. The three
+    spectrogram slabs are stored in `slab_dtype` (``TPU.SEP_SLAB_DTYPE``:
+    bfloat16 halves their bytes; a write rounds to it, the refit widens
+    them back to float32 once)."""
 
     sound_ids: torch.Tensor     # (T, N, S)
     az_idx: torch.Tensor        # (T, N)
@@ -63,7 +66,7 @@ class RolloutSepIdx:
     mono_l1: torch.Tensor       # (T, N)
 
     @classmethod
-    def create(cls, t_total, n, s, f=512, tt=32, device=None):
+    def create(cls, t_total, n, s, f=512, tt=32, device=None, slab_dtype=torch.float32):
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -72,15 +75,17 @@ class RolloutSepIdx:
             sound_ids=z(t_total, n, s, dtype=i64), az_idx=z(t_total, n, dtype=i64),
             scene_idx=z(t_total, n, dtype=i64), node=z(t_total, n, dtype=i64),
             sources=z(t_total, n, s, dtype=i64), target_class=z(t_total, n, 1, dtype=i64),
-            prev_mem=z(t_total, n, f, tt, 1), masks=torch.ones((t_total, n, 1), device=device),
-            pred_mono=z(t_total, n, f, tt, 1), gt_mono=z(t_total, n, f, tt, 1),
+            prev_mem=z(t_total, n, f, tt, 1, dtype=slab_dtype),
+            masks=torch.ones((t_total, n, 1), device=device),
+            pred_mono=z(t_total, n, f, tt, 1, dtype=slab_dtype),
+            gt_mono=z(t_total, n, f, tt, 1, dtype=slab_dtype),
             bin_l1=z(t_total, n), mono_l1=z(t_total, n),
         )
 
 
 def write_sep_slab(buf: RolloutSepIdx, slab: Dict[str, torch.Tensor], offset: int) -> RolloutSepIdx:
     """Copy a rollout's (T, ...) slab into rows [offset, offset + T) of the
-    buffer, in place."""
+    buffer, in place, cast to the buffer's dtypes."""
     for f in fields(buf):
         dst = getattr(buf, f.name)
         src = slab[f.name]
@@ -344,11 +349,14 @@ def make_collect(
 
 
 def _mem_refit(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int, state: AgentState,
-               mono_s, gt_s, prev_s, masks, generator, lr_scales, w_rows=None, wsum=None):
+               mono_s, gt_s, prev_s, masks, generator, lr_scales, w_rows=None, wsum=None,
+               refit_dtype: Optional[torch.dtype] = None):
     """The refit's grad steps: n_updates x ppo_epoch x num_mini_batch L1
-    steps of the acoustic memory on its sliced inputs (T, N, 16, F/16, Tt).
-    The masking of the carried memory and the channel concat are done once,
-    outside the loop. Returns the (n_updates,) mean memory losses.
+    steps of the acoustic memory on its sliced inputs (T, N, 16, F/16, Tt),
+    its convolutions in `refit_dtype` (None: the policy's compute dtype)
+    and the loss in float32. The masking of the carried memory and the
+    channel concat are done once, outside the loop. Returns the
+    (n_updates,) mean memory losses.
 
     `w_rows` ((T, 1) row weights, `wsum` their sum) makes each loss the
     rank's share of the global weighted mean, summed over the world with
@@ -384,7 +392,7 @@ def _mem_refit(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int, state: A
             if x.shape[0] == 0:
                 loss = torch.zeros((), device=x.device)
             else:
-                err = torch.abs(policy.acoustic_mem(x, sliced=True) - g)
+                err = torch.abs(policy.acoustic_mem(x, sliced=True, dtype=refit_dtype) - g)
                 loss = (err.mean(dim=(1, 2, 3)) * w).sum() / count if shares else err.mean()
                 loss.backward()
             losses.append(state.opt_sep.step(lr, extra=loss.detach().reshape(1))[0])
@@ -392,7 +400,8 @@ def _mem_refit(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int, state: A
 
 
 def make_update_sep_from_slabs(policy: Move2HearPolicy, cfg: PPOConfig, n_updates: int,
-                               with_validity: bool = False):
+                               with_validity: bool = False,
+                               refit_dtype: Optional[torch.dtype] = None):
     """All `n_updates` separator refits of a cycle:
     ``update(state, buf, generator, lr_scales, fill=None)`` -> (n_updates, 3)
     losses (bin L1, mono L1, memory L1 per update). It trains the acoustic
@@ -404,12 +413,17 @@ def make_update_sep_from_slabs(policy: Move2HearPolicy, cfg: PPOConfig, n_update
     With `with_validity` only the first `fill` rows of the buffer (those the
     cycle's rollouts, cut by the preemptive sync, wrote) weigh in the losses
     and the logged means. In a world of ranks the losses are shares of the
-    global means, summed over the world with the gradients."""
+    global means, summed over the world with the gradients. `refit_dtype`
+    (``TPU.SEP_REFIT_DTYPE``) is the memory's compute dtype in the refit;
+    None keeps the policy's. bfloat16 slabs are widened to float32 once,
+    before the loop."""
     size = world()[1]
     shares = size > 1 or with_validity
 
     def update(state: AgentState, buf: RolloutSepIdx, generator, lr_scales, fill=None):
         def sliced(v):  # (T, N, F, Tt, 1) -> (T, N, 16, F/16, Tt)
+            if v.dtype == torch.bfloat16:
+                v = v.float()
             t, n = v.shape[0], v.shape[1]
             s = slice16_nchw(v.reshape((t * n,) + tuple(v.shape[2:])))
             return s.reshape((t, n) + tuple(s.shape[1:]))
@@ -423,6 +437,7 @@ def make_update_sep_from_slabs(policy: Move2HearPolicy, cfg: PPOConfig, n_update
         mem_losses = _mem_refit(
             policy, cfg, n_updates, state, sliced(buf.pred_mono), sliced(buf.gt_mono),
             sliced(buf.prev_mem), buf.masks, generator, lr_scales, w_rows, wsum,
+            refit_dtype=refit_dtype,
         )
         if shares:
             count = max(wsum * n * size, 1.0)

@@ -24,9 +24,15 @@ draw and reduce their updates over the world (``parallel/dist.py``), so R
 ranks x N envs train as one rank of R*N envs. The preemptive rollout sync
 (``use_ddppo``, a world above one rank and ``short_rollout_threshold`` < 1)
 cuts rollouts once enough ranks are done; a preemption signal saves the
-interrupted state, which the next launch of the experiment resumes. Not
-ported yet, and raising NotImplementedError: the JAX package's ``TPU``
-knobs that ``refuse_unported_knobs`` lists.
+interrupted state, which the next launch of the experiment resumes.
+
+``TPU.COMPUTE_DTYPE`` bfloat16 runs the policy in bfloat16 compute with
+float32 parameters, Adam state and losses (``models/unet.py``);
+``SEP_SLAB_DTYPE`` is the storage of the refit's slabs, ``SEP_REFIT_DTYPE``
+the compute dtype of the refit alone, ``SUB_BANK_DTYPE`` the sub-bank
+slab's storage. ``TPU.REPORT_MFU`` counts the FLOPs of the first cycle
+(``trainer.mfu_info``). Not ported yet, and raising NotImplementedError:
+the JAX package's ``TPU`` knobs that ``refuse_unported_knobs`` lists.
 """
 
 import dataclasses
@@ -38,6 +44,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 import move2hear_tpu_torch.env.device_env as de
 from move2hear_tpu_torch.env.bundle import (
@@ -108,7 +115,7 @@ from move2hear_tpu_torch.rl.rollout import (
     insert_sep,
 )
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from move2hear_tpu_torch.utils.misc import linear_decay
+from move2hear_tpu_torch.utils.misc import DTYPE_KNOBS, linear_decay, tpu_dtype
 from move2hear_tpu_torch.utils.registry import registry
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
@@ -118,16 +125,13 @@ logger = logging.getLogger(__name__)
 
 def refuse_unported_knobs(tpu, training: bool = True) -> None:
     """Refuse the JAX package's ``TPU`` knobs that the port would not
-    honour. The port's default config lacks them, but its reader takes keys
-    it does not know, so without this they would run as if unset. Dtypes
-    and the mesh apply to evaluation too; the rest only to training."""
-    for key in ("COMPUTE_DTYPE", "SEP_SLAB_DTYPE", "SEP_REFIT_DTYPE", "SUB_BANK_DTYPE"):
-        value = str(tpu.get(key, "float32"))
-        if value not in ("float32", ""):
-            raise NotImplementedError(
-                f"TPU.{key}={value}: the port computes and stores in float32 only; "
-                "other dtypes are not ported yet (ROADMAP Queue 1 item 5)"
-            )
+    honour, and dtype knobs of a value no route takes (ValueError). The
+    port's default config lacks the unported knobs, but its reader takes
+    keys it does not know, so without this they would run as if unset.
+    Dtypes and the mesh apply to evaluation too; the rest only to
+    training."""
+    for key in DTYPE_KNOBS:
+        tpu_dtype(tpu, key)
     if any(int(d) > 1 for d in tpu.get("MESH_SHAPE", [1])):
         raise NotImplementedError(
             f"TPU.MESH_SHAPE={list(tpu.MESH_SHAPE)}: each rank of the port runs on one "
@@ -136,17 +140,47 @@ def refuse_unported_knobs(tpu, training: bool = True) -> None:
         )
     if not training:
         return
-    for key in ("FUSED_CYCLE", "PAIRWISE_FUSION", "REPORT_MFU"):
+    for key in ("FUSED_CYCLE", "PAIRWISE_FUSION"):
         if bool(tpu.get(key, False)):
             raise NotImplementedError(
-                f"TPU.{key}=True is not ported yet (ROADMAP Queue 1 item 5); the "
+                f"TPU.{key}=True is not ported yet (ROADMAP Queue 1 item 5b); the "
                 "port runs the collect, the update and the refit as separate loops"
             )
     if int(tpu.get("COLLECT_UNROLL", 1)) > 1:
         raise NotImplementedError(
             f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL} is not ported yet (ROADMAP Queue 1 "
-            "item 5); the collect is a Python loop"
+            "item 5b); the collect is a Python loop"
         )
+
+
+MFU_METHOD = (
+    "torch.utils.flop_counter.FlopCounterMode over the first training cycle (its "
+    "collects, policy updates and refit): convolutions, transposed convolutions and "
+    "matrix products, forward and backward, 2 FLOPs a multiply-add; no elementwise "
+    "operation and no FFT (the JAX package's XLA cost_analysis counts both, and its "
+    "render's DFT matmuls), and not cuDNN's float32 GRU (bfloat16 runs the GRU as "
+    "matrix products, which are counted)"
+)
+
+
+def mfu_report(flops: Dict[str, float], cycle: int, env_steps: int) -> Dict:
+    """``trainer.mfu_info`` (the JAX package's keys) from the FLOPs that
+    REPORT_MFU counted over one cycle of `cycle` collects and policy
+    updates and one refit, `env_steps` env-steps in all."""
+    total = flops["collect"] + flops["update"] + flops["refit"]
+    info = {
+        "flops_per_rollout_collect": flops["collect"] / cycle,
+        "flops_per_update_pol": flops["update"] / cycle,
+        "flops_per_cycle_sep_refit": float(flops["refit"]),
+        "flops_per_cycle_total": float(total),
+        "env_steps_per_cycle": env_steps,
+        "flops_per_env_step": total / env_steps,
+        "method": MFU_METHOD,
+    }
+    logger.info("MFU count: %.3f GFLOPs/env-step (collect %.1f + pol %.1f + refit %.1f "
+                "GF/cycle)", info["flops_per_env_step"] / 1e9, flops["collect"] / 1e9,
+                flops["update"] / 1e9, flops["refit"] / 1e9)
+    return info
 
 
 @registry.register_trainer(name="ppo")
@@ -188,8 +222,8 @@ class PPOTrainer(BaseRLTrainer):
         return self._bundle
 
     def _new_policy(self) -> Move2HearPolicy:
-        """The policy with weights drawn from a generator seeded by
-        cfg.SEED, on the trainer's device."""
+        """The policy in TPU.COMPUTE_DTYPE with weights drawn from a
+        generator seeded by cfg.SEED, on the trainer's device."""
         cfg, p = self.config, self.config.RL.PPO
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(int(cfg.SEED))
@@ -197,6 +231,7 @@ class PPOTrainer(BaseRLTrainer):
                 num_actions=len(cfg.TASK_CONFIG.TASK.POSSIBLE_ACTIONS),
                 hidden_size=p.hidden_size, extra_rgb=cfg.EXTRA_RGB,
                 extra_depth=cfg.EXTRA_DEPTH, use_ddppo=p.use_ddppo,
+                dtype=tpu_dtype(cfg.TPU, "COMPUTE_DTYPE"),
             )
         return policy.to(self.device)
 
@@ -225,6 +260,7 @@ class PPOTrainer(BaseRLTrainer):
             sub = estimate_sub_bank_bytes(
                 bundle, cfg.NUM_PROCESSES, cfg.NUM_SOUNDS_IN_MIX, p.num_steps,
                 cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
+                dtype_bytes=self._sub_dtype().itemsize,
             )
             route = "dense" if dense <= budget else "sub" if sub <= budget else "host"
             if route != "dense":
@@ -249,29 +285,43 @@ class PPOTrainer(BaseRLTrainer):
             )
         self._train_device(rir_mode=route)
 
+    def _sub_dtype(self) -> torch.dtype:
+        return tpu_dtype(self.config.TPU, "SUB_BANK_DTYPE")
+
+    def sub_bank_rows(self, bundle, v_pad: int) -> int:
+        """The sub route's slab rows: TPU.SUB_BANK_ROWS, or with 0, one
+        window's need grown into the budget the fixed banks leave (each
+        resident row saves a later re-upload) at TPU.SUB_BANK_DTYPE's bytes
+        a sample, at most one a (scene, source) key."""
+        cfg = self.config
+        rows = int(cfg.TPU.SUB_BANK_ROWS)
+        if rows:
+            return rows
+        n_keys = _count_unique_keys(bundle)
+        min_cap = sub_bank_capacity(cfg.NUM_PROCESSES, int(cfg.NUM_SOUNDS_IN_MIX),
+                                    cfg.RL.PPO.num_steps,
+                                    cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS, n_keys)
+        spare = int(cfg.TPU.MAX_DEVICE_BANK_BYTES) - fixed_bank_bytes(bundle)
+        return max_capacity_for_budget(
+            spare, row_bytes(v_pad, bundle.audio_db.rir_length, self._sub_dtype().itemsize),
+            min_cap, n_keys)
+
     def _make_sub_bank(self, bundle, dev, order, device) -> RirSubBank:
-        """The RIR sub-bank of the sub route: TPU.SUB_BANK_ROWS slots, or
-        with 0, one window's need grown into the budget the fixed banks
-        leave (each resident row saves a later re-upload), at most one a
-        (scene, source) key."""
+        """The RIR sub-bank of the sub route, ``sub_bank_rows`` slots of
+        TPU.SUB_BANK_DTYPE."""
         cfg, p = self.config, self.config.RL.PPO
+        dtype = self._sub_dtype()
         max_ep_steps = cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS
         v_pad = int(dev.scene.positions.shape[1])
-        rows = int(cfg.TPU.SUB_BANK_ROWS) or None
-        if rows is None:
-            n_keys = _count_unique_keys(bundle)
-            min_cap = sub_bank_capacity(cfg.NUM_PROCESSES, int(cfg.NUM_SOUNDS_IN_MIX),
-                                        p.num_steps, max_ep_steps, n_keys)
-            spare = int(cfg.TPU.MAX_DEVICE_BANK_BYTES) - fixed_bank_bytes(bundle)
-            rows = max_capacity_for_budget(
-                spare, row_bytes(v_pad, bundle.audio_db.rir_length), min_cap, n_keys)
+        rows = self.sub_bank_rows(bundle, v_pad)
         sub_bank = RirSubBank(
             bundle.scenes, bundle.audio_db, dev.episodes.scene_idx.cpu().numpy(),
             dev.episodes.sources.cpu().numpy(), order, max_ep_steps, p.num_steps,
-            v_pad=v_pad, capacity=rows, device=device,
+            v_pad=v_pad, capacity=rows, device=device, dtype=dtype,
         )
-        logger.info("RIR sub-bank: %d rows x (4, %d, %d, 2) float32 = %.2f GiB slab",
+        logger.info("RIR sub-bank: %d rows x (4, %d, %d, 2) %s = %.2f GiB slab",
                     sub_bank.capacity, v_pad, bundle.audio_db.rir_length,
+                    str(dtype).replace("torch.", ""),
                     sub_bank.capacity * sub_bank.row_bytes / 2**30)
         return sub_bank
 
@@ -453,6 +503,24 @@ class PPOTrainer(BaseRLTrainer):
         policy = self._new_policy()
         state = create_agent_state(ppo_cfg, policy)
         update_count, snap = self._load_start_state(policy, state)
+        self.mfu_info = None
+        report_mfu = bool(cfg.TPU.get("REPORT_MFU", False))
+        if report_mfu and world_size() > 1:
+            logger.warning("REPORT_MFU: the FLOP count covers a world of one rank only; "
+                           "mfu_info stays None")
+            report_mfu = False
+        flops = dict.fromkeys(("collect", "update", "refit"), 0)
+
+        def counted(name, fn, *args, **kwargs):
+            """fn(*args, **kwargs), its FLOPs added to flops[name] in the
+            first cycle under REPORT_MFU (``mfu_report``)."""
+            if not (report_mfu and cycle_idx == 0):
+                return fn(*args, **kwargs)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                out = fn(*args, **kwargs)
+            flops[name] += counter.get_total_flops()
+            return out
 
         # pose-indexed rollout observations whenever the collect's
         # per-rollout visual-feature bank is active: the update then runs
@@ -483,11 +551,13 @@ class PPOTrainer(BaseRLTrainer):
                 sync_dev = self._make_rollout_sync(t_steps)
                 collect_prefix, collect_tail = mk_collect(s0), mk_collect(t_steps - s0)
         update_pol = make_update_pol(policy, ppo_cfg, n_envs, pose_bank=pose_obs)
-        update_sep = make_update_sep_from_slabs(policy, ppo_cfg, cycle,
-                                                with_validity=sync_dev is not None)
+        update_sep = make_update_sep_from_slabs(
+            policy, ppo_cfg, cycle, with_validity=sync_dev is not None,
+            refit_dtype=tpu_dtype(cfg.TPU, "SEP_REFIT_DTYPE"))
         pol_banks = {"rgb": dev.rgb_bank, "depth": dev.depth_bank} if pose_obs else None
         sep_buf = RolloutSepIdx.create(t_steps * cycle, n_envs, cfg.NUM_SOUNDS_IN_MIX,
-                                       device=device)
+                                       device=device,
+                                       slab_dtype=tpu_dtype(cfg.TPU, "SEP_SLAB_DTYPE"))
         hidden = torch.zeros((n_envs, p.hidden_size), device=device)
         masks = torch.ones((n_envs, 1), device=device)
         prev_mem = torch.zeros((n_envs, 512, 32, 1), device=device)
@@ -548,7 +618,8 @@ class PPOTrainer(BaseRLTrainer):
                     slab, table = sub_bank.rollout_inputs()
                     dev = dataclasses.replace(dev, rir_sub_bank=slab, ep_src_row=table)
                 if sync_dev is None:
-                    out = collect(dev, env_state, hidden, masks, prev_mem, generator)
+                    out = counted("collect", collect, dev, env_state, hidden, masks, prev_mem,
+                                  generator)
                     executed = t_steps
                 else:
                     sync_dev.new_rollout()
@@ -572,8 +643,8 @@ class PPOTrainer(BaseRLTrainer):
                 write_sep_slab(sep_buf, out.sep_slab, sep_fill)
                 sep_fill += executed
                 marks.append(mark())
-                pol_l.append(update_pol(state, out.rollouts_pol, generator, lr_scale,
-                                        clip_scale, banks=pol_banks))
+                pol_l.append(counted("update", update_pol, state, out.rollouts_pol, generator,
+                                     lr_scale, clip_scale, banks=pol_banks))
                 marks.append(mark())
                 stats_list.append(out.stats)
                 if prefetch:
@@ -586,7 +657,7 @@ class PPOTrainer(BaseRLTrainer):
                 for i in range(cycle)
             ]
             if sync_dev is None:
-                sep_losses = update_sep(state, sep_buf, generator, sep_lrs)
+                sep_losses = counted("refit", update_sep, state, sep_buf, generator, sep_lrs)
                 packed = torch.stack(stats_list)
             else:
                 sep_losses = update_sep(state, sep_buf, generator, sep_lrs, fill=sep_fill)
@@ -594,6 +665,8 @@ class PPOTrainer(BaseRLTrainer):
                 packed = torch.cat(stats_list)[None]
             marks.append(mark())
             self._last_sep_fill = sep_fill
+            if report_mfu and cycle_idx == 0:
+                self.mfu_info = mfu_report(flops, cycle, t_steps * cycle * n_envs)
             if sub_bank is not None:
                 self._log_sub_bank(sub_bank)
             update_count += cycle
@@ -790,6 +863,10 @@ class PPOTrainer(BaseRLTrainer):
         on_cuda = device.type == "cuda"
         self._rir_mode = "host"
         t_setup = time.perf_counter()
+        self.mfu_info = None
+        if self.config.TPU.get("REPORT_MFU", False):
+            logger.warning("REPORT_MFU: the FLOP count covers the device path's cycle only; "
+                           "the host path leaves mfu_info at None")
 
         def sync():
             if on_cuda:

@@ -4,6 +4,28 @@ import glob
 import os
 from typing import Optional
 
+import torch
+
+# the `TPU` dtype knobs and the values each takes; SEP_REFIT_DTYPE's ""
+# keeps COMPUTE_DTYPE
+DTYPE_KNOBS = {
+    "COMPUTE_DTYPE": ("float32", "bfloat16"),
+    "SEP_SLAB_DTYPE": ("float32", "bfloat16"),
+    "SEP_REFIT_DTYPE": ("", "float32", "bfloat16"),
+    "SUB_BANK_DTYPE": ("float32", "bfloat16"),
+}
+
+
+def tpu_dtype(tpu, key: str) -> Optional[torch.dtype]:
+    """The torch dtype the `TPU` knob `key` names (None for ""). A value
+    outside DTYPE_KNOBS[key] raises ValueError: a typo must not run in
+    float32 without a word."""
+    default = "" if key == "SEP_REFIT_DTYPE" else "float32"
+    value = str(tpu.get(key, default))
+    if value not in DTYPE_KNOBS[key]:
+        raise ValueError(f"TPU.{key}={value!r}: expected one of {DTYPE_KNOBS[key]}")
+    return getattr(torch, value) if value else None
+
 
 def linear_decay(epoch: int, total_num_updates: int) -> float:
     """LR/clip multiplier decaying linearly to 0 (utils.py:53-63)."""

@@ -2,7 +2,7 @@
 ``move2hear_tpu_torch.main.main`` with the given arguments (RANK,
 WORLD_SIZE, MASTER_ADDR and MASTER_PORT in the environment make it a rank
 of a world) and saves what the tests compare: the final state dict, the
-loss log and the refit buffer's fill, with ``torch.save``. TensorBoard and
+loss log, the refit buffer's fill and ``mfu_info``, with ``torch.save``. TensorBoard and
 the checkpoint files are off; torch takes M2H_TEST_THREADS threads (1).
 
     python tests/_torch_ddppo_rank.py OUT.pt --run-type train --exp-config ... [opts]
@@ -323,6 +323,7 @@ def main():
         "val_history": getattr(trainer, "_val_history", None),
         "sep_fill": getattr(trainer, "_last_sep_fill", None),
         "cycles": len(getattr(trainer, "cycle_log", []) or []),
+        "mfu_info": getattr(trainer, "mfu_info", None),
     }, out)
     print("RANK-OK", os.environ.get("RANK", "0"), flush=True)
 

@@ -1,0 +1,420 @@
+"""The port's bfloat16 compute (``TPU.COMPUTE_DTYPE`` bfloat16) against the
+JAX package's flax ``dtype=jnp.bfloat16`` modules on the CPU. The same
+flax parameters go to both packages (``utils/params.py:from_jax``); inputs
+come from a numpy seed.
+
+The discriminator: for every output tensor, the port's bfloat16 result must
+be at least twice as close to the JAX bfloat16 result as the JAX bfloat16
+result is to the JAX float32 one, in mean absolute error; and its largest
+absolute error must stay within MAX_ULPS bfloat16 ulps of the tensor's
+largest magnitude. A port that ignores the dtype sits as far from JAX
+bfloat16 as JAX float32 does (ratio 1), and one that rounds in other places
+(an fp32 bias add, autocast's cast caching) lands in between. The ratio is
+on the mean, not the maximum: two correct bfloat16 convolutions that sum in
+different orders round a few outputs to neighbouring bfloat16 values (one
+ulp, where the dtype's own error is at most half of one), so a maximum
+cannot tell them apart; the mean can.
+
+JAX runs with full-precision float32 matmuls and without XLA's excess
+precision (``xla_allow_excess_precision`` False), so each bfloat16 result
+is rounded where flax's ``dtype=`` says; by default XLA:CPU drops
+bfloat16 round trips between fused operations, a precision no flax module
+asks for.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from move2hear_tpu.models import audio_cnn as j_audio
+from move2hear_tpu.models import distributions as j_dist
+from move2hear_tpu.models import memory as j_memory
+from move2hear_tpu.models import policy as j_policy
+from move2hear_tpu.models import rnn as j_rnn
+from move2hear_tpu.models import unet as j_unet
+from move2hear_tpu.models import visual_cnn as j_visual
+from move2hear_tpu.ops import pallas_kernels as jpk
+from move2hear_tpu_torch.models import (
+    AcousticMem,
+    AudioCNN,
+    CategoricalNet,
+    CriticHead,
+    GRUStateEncoder,
+    Move2HearPassiveWoMemoryPolicy,
+    Move2HearPolicy,
+    PassiveSepDecoder,
+    PassiveSepEncoder,
+    VisualCNN,
+)
+from move2hear_tpu_torch.utils import params as P
+
+B = 4
+HID = 32
+BF16 = torch.bfloat16
+RATIO = 2.0   # the port at least this much closer to JAX bf16 than JAX bf16 to f32
+MAX_ULPS = 4  # the floor of the largest error, in bf16 ulps (2**-7 relative)
+
+
+@pytest.fixture(autouse=True)
+def _precise_matmuls_and_plain_route(monkeypatch):
+    # an interpret-mode Pallas call elsewhere in the process would make the
+    # JAX package's default route lower the Mosaic kernel on the CPU
+    monkeypatch.setattr(jpk, "_PALLAS_STATUS", {})
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def jit(fn):
+    return jax.jit(fn, compiler_options={"xla_allow_excess_precision": False})
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def discriminate(ours, j_bf16, j_f32, name: str) -> float:
+    """Assert the discriminator on one output tensor (module docstring);
+    returns the ratio of the mean errors."""
+    ours, jb, jf = _np(ours), _np(j_bf16), _np(j_f32)
+    assert ours.shape == jb.shape == jf.shape, (name, ours.shape, jb.shape)
+    port_err = float(np.abs(ours - jb).mean())
+    dtype_err = float(np.abs(jb - jf).mean())
+    assert dtype_err > 0.0, f"{name}: JAX bfloat16 equals float32, nothing to discriminate"
+    ratio = dtype_err / max(port_err, 1e-30)
+    floor = MAX_ULPS * 2.0**-7 * float(np.abs(jf).max())
+    worst = float(np.abs(ours - jb).max())
+    assert ratio >= RATIO, (
+        f"{name}: mean |port - jax_bf16| {port_err:.3e} is only {ratio:.2f}x below "
+        f"mean |jax_bf16 - jax_f32| {dtype_err:.3e}")
+    assert worst <= floor, f"{name}: max |port - jax_bf16| {worst:.3e} > {floor:.3e}"
+    print(f"{name}: mean error ratio {ratio:.1f}, max |port - jax_bf16| {worst:.3e} "
+          f"(floor {floor:.3e}, max |jax_bf16 - jax_f32| {float(np.abs(jb - jf).max()):.3e})")
+    return ratio
+
+
+def _np_tree(tree, rng):
+    """flax variables -> numpy, with biases and BatchNorm statistics redrawn
+    from `rng` so that every map carries non-trivial values."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out[k] = _np_tree(v, rng)
+            continue
+        a = np.asarray(v, np.float32)
+        if k in ("mean", "bias"):
+            a = (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        elif k == "var":
+            a = (0.5 + rng.uniform(0.0, 1.0, a.shape)).astype(np.float32)
+        elif k == "scale":
+            a = (1.0 + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        out[k] = a
+    return out
+
+
+def _init(module, seed, *args, **kwargs):
+    v = module.init(jax.random.PRNGKey(seed), *args, **kwargs)
+    rng = np.random.default_rng(seed)
+    return _np_tree(v["params"], rng), _np_tree(v.get("batch_stats", {}), rng)
+
+
+def _variables(params, stats):
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def _both(make, apply):
+    """JAX (bfloat16, float32) results of ``apply(module)``, jitted alike."""
+    return tuple(jit(lambda: apply(make(dt)))() for dt in (jnp.bfloat16, jnp.float32))
+
+
+def _spec_inputs(seed, b=B):
+    rng = np.random.default_rng(seed)
+    mix = np.abs(rng.standard_normal((b, 512, 32, 2))).astype(np.float32)
+    masks = rng.uniform(-0.2, 1.2, (b, 512, 32, 2)).astype(np.float32)
+    tc = rng.integers(0, 10, (b, 1)).astype(np.int32)
+    return mix, masks, tc
+
+
+def _nchw(x):
+    return torch.from_numpy(np.transpose(_np(x), (0, 3, 1, 2)).copy())
+
+
+@pytest.mark.parametrize("bin2mono", [False, True], ids=["binSep", "bin2mono"])
+def test_unet_in_bfloat16(bin2mono):
+    """Encoder (convs in bf16, BatchNorm in f32) then decoder on the JAX
+    bfloat16 encoder's outputs, both U-Net variants; the bin2mono encoder
+    takes a bfloat16 mask, as the separator chain hands it on."""
+    mix, masks, tc = _spec_inputs(10 + bin2mono)
+    jm = jnp.asarray(masks).astype(jnp.bfloat16)
+    kw = {"pred_bin_sep_masks": jm} if bin2mono else {"target_class": jnp.asarray(tc)}
+    ep, es = _init(j_unet.PassiveSepEncoder(convert_bin2mono=bin2mono), 1, jnp.asarray(mix), **kw)
+    (jb_bott, jb_skips), (jf_bott, jf_skips) = _both(
+        lambda dt: j_unet.PassiveSepEncoder(convert_bin2mono=bin2mono, dtype=dt),
+        lambda m: m.apply(_variables(ep, es), jnp.asarray(mix), **kw))
+    enc = PassiveSepEncoder(bin2mono, dtype=BF16)
+    enc.load_state_dict(P.unet_encoder(ep, es))
+    t_kw = ({"pred_bin_sep_masks": torch.from_numpy(masks).to(BF16)} if bin2mono
+            else {"target_class": torch.from_numpy(tc)})
+    with torch.no_grad():
+        bott, skips = enc.eval()(torch.from_numpy(mix), **t_kw)
+    assert bott.dtype == torch.float32 and all(s.dtype == torch.float32 for s in skips)
+    discriminate(bott, jb_bott, jf_bott, "bottleneck")
+    for i, (s, b, f) in enumerate(zip(skips, jb_skips, jf_skips)):
+        discriminate(s.permute(0, 2, 3, 1), b, f, f"skip {i}")
+
+    dp, ds = _init(j_unet.PassiveSepDecoder(convert_bin2mono=bin2mono), 2, jb_bott, jb_skips)
+    jb_out, jf_out = _both(
+        lambda dt: j_unet.PassiveSepDecoder(convert_bin2mono=bin2mono, dtype=dt),
+        lambda m: m.apply(_variables(dp, ds), jb_bott, jb_skips))
+    assert jb_out.dtype == jnp.bfloat16
+    dec = PassiveSepDecoder(bin2mono, dtype=BF16)
+    dec.load_state_dict(P.unet_decoder(dp, ds))
+    with torch.no_grad():
+        out = dec.eval()(torch.from_numpy(_np(jb_bott)), [_nchw(s) for s in jb_skips])
+    assert out.dtype == BF16
+    discriminate(out, jb_out, jf_out, "decoder")
+
+
+@pytest.mark.parametrize("use_ddppo", [True, False], ids=["ddppo", "batchnorm"])
+def test_acoustic_mem_in_bfloat16(use_ddppo):
+    rng = np.random.default_rng(20)
+    mono = jnp.asarray(rng.standard_normal((B, 512, 32, 1)).astype(np.float32)).astype(jnp.bfloat16)
+    prev = jnp.asarray(rng.standard_normal((B, 512, 32, 1)).astype(np.float32))
+    p, s = _init(j_memory.AcousticMem(use_ddppo=use_ddppo), 3, mono, prev)
+    jb, jf = _both(lambda dt: j_memory.AcousticMem(use_ddppo=use_ddppo, dtype=dt),
+                   lambda m: m.apply(_variables(p, s), mono, prev))
+    t = AcousticMem(use_ddppo, dtype=BF16)
+    t.load_state_dict(P.acoustic_mem(p, s))
+    with torch.no_grad():
+        out = t.eval()(torch.from_numpy(_np(mono)).to(BF16), torch.from_numpy(_np(prev)))
+    assert out.dtype == BF16
+    discriminate(out, jb, jf, "acoustic memory")
+
+
+@pytest.mark.parametrize("mono_mode", [False, True], ids=["bin", "monoNmonoFromMem"])
+def test_audio_cnn_in_bfloat16(mono_mode):
+    mix, masks, _ = _spec_inputs(30)
+    jm = jnp.asarray(masks).astype(jnp.bfloat16)
+    args = ({"pred_mono_n_mono_from_mem": jm} if mono_mode
+            else {"mixed_log_mag": jnp.asarray(mix), "pred_bin_sep_masks": jm})
+    p, _ = _init(j_audio.AudioCNN(output_size=64, encode_mono_n_mono_from_mem=mono_mode), 4,
+                 **args)
+    jb, jf = _both(lambda dt: j_audio.AudioCNN(64, mono_mode, dtype=dt),
+                   lambda m: m.apply({"params": p}, **args))
+    t = AudioCNN(64, mono_mode, dtype=BF16)
+    t.load_state_dict(P.audio_cnn(p))
+    tm = torch.from_numpy(masks).to(BF16)
+    t_args = ({"pred_mono_n_mono_from_mem": tm} if mono_mode
+              else {"mixed_log_mag": torch.from_numpy(mix), "pred_bin_sep_masks": tm})
+    with torch.no_grad():
+        out = t.eval()(**t_args)
+    assert out.dtype == BF16
+    discriminate(out, jb, jf, "audio cnn")
+
+
+@pytest.mark.parametrize("extra_depth", [False, True], ids=["rgbd", "rgb"])
+def test_visual_cnn_in_bfloat16(extra_depth):
+    """Including the bfloat16 ``rgb / 255``."""
+    rng = np.random.default_rng(40)
+    rgb = rng.integers(0, 256, (B, 128, 128, 3)).astype(np.uint8)
+    depth = rng.uniform(0, 1, (B, 128, 128, 1)).astype(np.float32)
+    p, _ = _init(j_visual.VisualCNN(64, extra_depth=extra_depth), 5, jnp.asarray(rgb),
+                 jnp.asarray(depth))
+    jb, jf = _both(lambda dt: j_visual.VisualCNN(64, extra_depth=extra_depth, dtype=dt),
+                   lambda m: m.apply({"params": p}, jnp.asarray(rgb), jnp.asarray(depth)))
+    t = VisualCNN(64, extra_depth=extra_depth, dtype=BF16)
+    t.load_state_dict(P.visual_cnn(p))
+    with torch.no_grad():
+        out = t.eval()(torch.from_numpy(rgb), torch.from_numpy(depth))
+    assert out.dtype == BF16
+    discriminate(out, jb, jf, "visual cnn")
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["step", "sequence"])
+def test_gru_in_bfloat16(seq):
+    """bf16 gate GEMMs and gate math, the float32 carry promoting the new
+    hidden state to float32; masked resets at a step and in a sequence."""
+    rng = np.random.default_rng(50 + seq)
+    t_len = 5
+    x = rng.standard_normal((t_len, 3, 96) if seq else (3, 96)).astype(np.float32)
+    h = rng.standard_normal((3, HID)).astype(np.float32)
+    m = (rng.uniform(size=(t_len, 3, 1) if seq else (3, 1)) > 0.3).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    p, _ = _init(j_rnn.GRUStateEncoder(hidden_size=HID), 6, xb[0] if seq else xb,
+                 jnp.asarray(h), jnp.asarray(m[0] if seq else m))
+    (jb_out, jb_h), (jf_out, jf_h) = _both(
+        lambda dt: j_rnn.GRUStateEncoder(HID, dtype=dt),
+        lambda mod: mod.apply({"params": p}, xb, jnp.asarray(h), jnp.asarray(m)))
+    assert jb_h.dtype == jnp.float32
+    t = GRUStateEncoder(96, HID, dtype=BF16)
+    t.load_state_dict(P.gru(p))
+    with torch.no_grad():
+        out, new_h = t(torch.from_numpy(_np(xb)).to(BF16), torch.from_numpy(h),
+                       torch.from_numpy(m))
+    assert out.dtype == new_h.dtype == torch.float32
+    discriminate(out, jb_out, jf_out, "outputs")
+    discriminate(new_h, jb_h, jf_h, "hidden")
+
+
+def test_heads_in_bfloat16():
+    """The action logits and the value come back as float32."""
+    rng = np.random.default_rng(70)
+    x = jnp.asarray(rng.standard_normal((8, HID)).astype(np.float32)).astype(jnp.bfloat16)
+    for j_mod, t_mod, key in ((lambda dt: j_dist.CategoricalNet(3, dtype=dt),
+                               lambda: CategoricalNet(HID, 3, dtype=BF16), "logits"),
+                              (lambda dt: j_dist.CriticHead(dtype=dt),
+                               lambda: CriticHead(HID, dtype=BF16), "value")):
+        p, _ = _init(j_mod(jnp.float32), 8, x)
+        jb, jf = _both(j_mod, lambda m: m.apply({"params": p}, x))
+        if key == "logits":
+            jb, jf = jb.logits, jf.logits
+        t = t_mod()
+        w = p["Dense_0"]
+        t.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in (
+            (next(iter(t.state_dict())), w["kernel"].T), (list(t.state_dict())[1], w["bias"]))})
+        with torch.no_grad():
+            out = t(torch.from_numpy(_np(x)).to(BF16))
+        out = out.logits if key == "logits" else out
+        assert out.dtype == torch.float32 and jb.dtype == jnp.float32
+        discriminate(out, jb, jf, key)
+
+
+def _policy_inputs(seed):
+    mix, _, tc = _spec_inputs(seed)
+    rng = np.random.default_rng(seed + 1)
+    return {
+        "rgb": rng.integers(0, 256, (B, 128, 128, 3)).astype(np.uint8),
+        "depth": rng.uniform(0, 1, (B, 128, 128, 1)).astype(np.float32),
+        "mixed_bin_audio_mag": mix, "target_class": tc,
+        "hidden": rng.standard_normal((B, HID)).astype(np.float32),
+        "masks": (rng.uniform(size=(B, 1)) > 0.3).astype(np.float32),
+        "prev": rng.standard_normal((B, 512, 32, 1)).astype(np.float32),
+    }
+
+
+def _full_policy(seed, inp):
+    obs = {k: jnp.asarray(inp[k]) for k in ("rgb", "depth", "mixed_bin_audio_mag",
+                                              "target_class")}
+    pol = j_policy.Move2HearPolicy(num_actions=3, hidden_size=HID, extra_depth=True)
+    p, s = _init(pol, seed, obs, jnp.asarray(inp["hidden"]), jnp.asarray(inp["masks"]))
+    t = Move2HearPolicy(3, HID, extra_depth=True, dtype=BF16)
+    t.load_state_dict(P.from_jax(p, s))
+    return obs, _variables(p, s), t.eval()
+
+
+def test_policy_act_in_bfloat16():
+    """The separator chain and deterministic ``act`` of the full policy.
+    Each stage takes the JAX bfloat16 chain's inputs (JAX float32 their
+    float32 values), so the discriminator weighs each stage's own rounding,
+    not the last ulp of the stage before it."""
+    inp = _policy_inputs(60)
+    obs, v, t = _full_policy(7, inp)
+    M = j_policy.Move2HearPolicy
+
+    def chain(dt, feed=None):
+        pol = M(num_actions=3, hidden_size=HID, extra_depth=True, dtype=dt)
+
+        def run():
+            pm = pol.apply(v, obs, method=M.get_binSepMasks)
+            pm_in = pm if feed is None else feed[0]
+            mono = pol.apply(v, pm_in, obs["mixed_bin_audio_mag"], method=M.convert_bin2mono)
+            mono_in = mono if feed is None else feed[1]
+            mem = pol.apply(v, mono_in, jnp.asarray(inp["prev"]), method=M.get_monoFromMem)
+            mem_in = mem if feed is None else feed[2]
+            act = pol.apply(v, obs, jnp.asarray(inp["hidden"]), jnp.asarray(inp["masks"]),
+                            pm_in, mono_in, mem_in, None, True, method=M.act)
+            return pm, mono, mem, act
+        return jit(run)()
+
+    jb = chain(jnp.bfloat16)
+    jf = chain(jnp.float32, feed=tuple(x.astype(jnp.float32) for x in jb[:3]))
+    t_obs = {k: torch.from_numpy(inp[k]) for k in obs}
+    pm_b, mono_b, mem_b = (torch.from_numpy(_np(x)).to(BF16) for x in jb[:3])
+    with torch.no_grad():
+        pm = t.get_binSepMasks(t_obs)
+        mono = t.convert_bin2mono(pm_b, t_obs["mixed_bin_audio_mag"])
+        mem = t.get_monoFromMem(mono_b, torch.from_numpy(inp["prev"]))
+        act = t.act(t_obs, torch.from_numpy(inp["hidden"]), torch.from_numpy(inp["masks"]),
+                    pm_b, mono_b, mem_b, deterministic=True)
+    assert pm.dtype == mono.dtype == mem.dtype == BF16
+    for i, (name, ours) in enumerate((("binSep masks", pm), ("bin2mono", mono),
+                                      ("acoustic mem", mem))):
+        discriminate(ours, jb[i], jf[i], name)
+    for name in ("value", "hidden", "probs"):
+        assert getattr(act, name).dtype == torch.float32
+        discriminate(getattr(act, name), getattr(jb[3], name), getattr(jf[3], name), name)
+    np.testing.assert_array_equal(act.action.numpy(), np.asarray(jb[3].action))
+
+
+def test_policy_evaluate_actions_in_bfloat16():
+    """The PPO update's sequence evaluation over (T, N) stored steps:
+    bfloat16 stored separator outputs, float32 stored memory (as the
+    rollout stores them)."""
+    t_len, n = 3, 2
+    inp = _policy_inputs(80)
+    _, v, t = _full_policy(9, inp)
+    rng = np.random.default_rng(81)
+    seq = {
+        "rgb": rng.integers(0, 256, (t_len, n, 128, 128, 3)).astype(np.uint8),
+        "depth": rng.uniform(0, 1, (t_len, n, 128, 128, 1)).astype(np.float32),
+        "mixed_bin_audio_mag": np.abs(rng.standard_normal((t_len, n, 512, 32, 2))).astype(
+            np.float32),
+        "target_class": rng.integers(0, 10, (t_len, n, 1)).astype(np.int32),
+    }
+    pm = rng.uniform(-0.2, 1.2, (t_len, n, 512, 32, 2)).astype(np.float32)
+    mono = np.abs(rng.standard_normal((t_len, n, 512, 32, 1))).astype(np.float32)
+    mem = rng.standard_normal((t_len, n, 512, 32, 1)).astype(np.float32)
+    hidden = rng.standard_normal((n, HID)).astype(np.float32)
+    masks = (rng.uniform(size=(t_len, n, 1)) > 0.3).astype(np.float32)
+    action = rng.integers(0, 3, (t_len, n, 1)).astype(np.int32)
+    pm_b = jnp.asarray(pm).astype(jnp.bfloat16)
+    mono_b = jnp.asarray(mono).astype(jnp.bfloat16)
+    M = j_policy.Move2HearPolicy
+
+    def run(dt):
+        pol = M(num_actions=3, hidden_size=HID, extra_depth=True, dtype=dt)
+        return jit(lambda: pol.apply(
+            v, {k: jnp.asarray(a) for k, a in seq.items()}, jnp.asarray(hidden),
+            jnp.asarray(masks), jnp.asarray(action), pm_b, mono_b, jnp.asarray(mem),
+            method=M.evaluate_actions))()
+
+    jb, jf = run(jnp.bfloat16), run(jnp.float32)
+    with torch.no_grad():
+        out = t.evaluate_actions(
+            {k: torch.from_numpy(a) for k, a in seq.items()}, torch.from_numpy(hidden),
+            torch.from_numpy(masks), torch.from_numpy(action),
+            torch.from_numpy(_np(pm_b)).to(BF16), torch.from_numpy(_np(mono_b)).to(BF16),
+            torch.from_numpy(mem))
+    for i, name in enumerate(("values", "log_probs", "entropy", "hidden")):
+        assert out[i].dtype == torch.float32
+        discriminate(out[i].reshape(-1), jnp.reshape(jb[i], (-1,)), jnp.reshape(jf[i], (-1,)),
+                     name)
+
+
+def test_passive_policy_in_bfloat16():
+    """The pretrain's passive policy on its running statistics: both
+    outputs in bfloat16; the bin2mono pair takes the JAX bfloat16 masks, as
+    in test_policy_act_in_bfloat16."""
+    mix, _, tc = _spec_inputs(90)
+    obs = {"mixed_bin_audio_mag": jnp.asarray(mix), "target_class": jnp.asarray(tc)}
+    J = j_policy.Move2HearPassiveWoMemoryPolicy
+    p, s = _init(J(), 11, obs)
+    jb_m, jf_m = _both(lambda dt: J(dtype=dt), lambda m: m.apply(
+        _variables(p, s), obs, method=J.get_binSepMasks))
+    jb_mono, jf_mono = _both(lambda dt: J(dtype=dt), lambda m: m.apply(
+        _variables(p, s), jb_m.astype(m.dtype), obs["mixed_bin_audio_mag"],
+        method=J.convert_bin2mono))
+    t = Move2HearPassiveWoMemoryPolicy(dtype=BF16)
+    t.load_state_dict(P.from_jax(p, s))
+    t_obs = {"mixed_bin_audio_mag": torch.from_numpy(mix), "target_class": torch.from_numpy(tc)}
+    with torch.no_grad():
+        masks = t.eval().get_binSepMasks(t_obs)
+        mono = t.convert_bin2mono(torch.from_numpy(_np(jb_m)).to(BF16),
+                                  t_obs["mixed_bin_audio_mag"])
+        both = t(t_obs)
+    assert masks.dtype == mono.dtype == BF16 and torch.equal(both[0], masks)
+    discriminate(masks, jb_m, jf_m, "masks")
+    discriminate(mono, jb_mono, jf_mono, "mono")

@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MM_CASES, OLA_CASES, mm_bwd_inputs, mm_inputs, ola_call, ola_inputs
+from chip_smoke import (
+    MM_BF16_CASES,
+    MM_CASES,
+    OLA_CASES,
+    mm_bf16_bwd_inputs,
+    mm_bf16_inputs,
+    mm_bwd_inputs,
+    mm_inputs,
+    ola_call,
+    ola_inputs,
+)
 from move2hear_tpu_torch.ops import kernels
 
 ATOL = 1e-5  # float32 elementwise math; the plain versions use the same formulas
@@ -131,6 +141,61 @@ def test_masked_mix_slice16_output_carries_a_grad_fn(cuda):
     torch.cuda.synchronize()
     assert kernels.masked_mix_slice16_bwd.launches == before + 1
     assert mix.grad is not None and torch.isfinite(mix.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(MM_BF16_CASES))
+def test_masked_mix_slice16_bf16_mask_kernels_match_plain(cuda, label):
+    """The bfloat16-mask variants, forward and backward, at every shape the
+    bfloat16 paths launch them at and at the edge shapes: float32 outputs
+    (dmask too), each launch counted on its variant."""
+    b, f, t, c, offset = MM_BF16_CASES[label]
+    mix, mask = mm_bf16_inputs(torch, MM_BF16_CASES[label])
+    assert mask.dtype == torch.bfloat16 and mask.storage_offset() == offset
+    before = dict(kernels.launch_counts(variants=True))
+    out = kernels.masked_mix_slice16(mix, mask)
+    g, _, _ = mm_bf16_bwd_inputs(torch, MM_BF16_CASES[label])
+    dmix, dmask = kernels.masked_mix_slice16_bwd(g, mix, mask)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts(variants=True)
+    assert {k: after[k] - before[k] for k in after} == {
+        "masked_mix_slice16": 0, "overlap_add": 0, "masked_mix_slice16_bwd": 0,
+        "masked_mix_slice16_bf16": 1, "masked_mix_slice16_bwd_bf16": 1}
+    assert out.dtype == dmix.dtype == dmask.dtype == torch.float32
+    assert out.shape == (b, 16 * c, f // 16, t)
+    torch.testing.assert_close(out, kernels.masked_mix_slice16_plain(mix, mask), atol=ATOL, rtol=0)
+    pmix, pmask = kernels.masked_mix_slice16_bwd_plain(g, mix, mask)
+    torch.testing.assert_close(dmix, pmix, atol=ATOL, rtol=0)
+    torch.testing.assert_close(dmask, pmask, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_masked_mix_slice16_refuses_other_dtype_pairs(cuda):
+    """A float16 mask, or a bfloat16 mixture, raises on the card: only
+    (float32, float32) and (float32, bfloat16) have a kernel."""
+    mix, mask = mm_bf16_inputs(torch, MM_BF16_CASES["B=1"])
+    for pair in ((mix, mask.to(torch.float16)), (mix.to(torch.bfloat16), mask),
+                 (mix.double(), mask.double())):
+        with pytest.raises(TypeError):
+            kernels.masked_mix_slice16(*pair)
+    g, _, _ = mm_bf16_bwd_inputs(torch, MM_BF16_CASES["B=1"])
+    with pytest.raises(TypeError):
+        kernels.masked_mix_slice16_bwd(g, mix, mask.to(torch.float16))
+
+
+@pytest.mark.cuda
+def test_masked_mix_slice16_bf16_mask_gradient_comes_back_bfloat16(cuda):
+    """Through autograd the kernel's float32 mask gradient is cast to the
+    mask's bfloat16 (the JAX custom VJP hands float32 on; ROADMAP Queue 3)."""
+    mix, mask = mm_bf16_inputs(torch, MM_BF16_CASES["collect"])
+    a, b = mix.clone().requires_grad_(True), mask.clone().requires_grad_(True)
+    out = kernels.masked_mix_slice16(a, b)
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    out.backward(g)
+    dmix, dmask = kernels.masked_mix_slice16_bwd(g, mix, mask)
+    torch.cuda.synchronize()
+    assert b.grad.dtype == torch.bfloat16 and torch.equal(b.grad, dmask.to(torch.bfloat16))
+    assert torch.equal(a.grad, dmix)
 
 
 @pytest.mark.cuda

@@ -350,7 +350,7 @@ def test_cli_pretrain_evaluate_and_start_rl_training(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("opts,error", [
-    (["TPU.COMPUTE_DTYPE", "bfloat16"], NotImplementedError),
+    (["TPU.COMPUTE_DTYPE", "float16"], ValueError),
     (["TPU.MESH_SHAPE", "[2]"], NotImplementedError),
     (["CUDA"], RuntimeError),
 ])
@@ -363,6 +363,17 @@ def test_pretrain_refuses_the_routes_not_ported(tmp_path, opts, error):
     cfg = get_config(EXP, opts, str(tmp_path / "run"), "train")
     with pytest.raises(error):
         tpt.PassiveTrainer(cfg, device=device)
+
+
+def test_pretrain_takes_compute_dtype_bfloat16(tmp_path):
+    """TPU.COMPUTE_DTYPE bfloat16, refused before it was ported, builds the
+    passive policy in bfloat16 compute with float32 parameters."""
+    cfg = get_config(EXP, ["TPU.COMPUTE_DTYPE", "bfloat16"], str(tmp_path / "run"), "train")
+    trainer = tpt.PassiveTrainer(cfg, device="cpu")
+    policy = trainer.new_policy()
+    assert policy.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in policy.parameters())
+    assert policy.binSep_enc.cnn[0][0].compute_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("case", ["FILES"])

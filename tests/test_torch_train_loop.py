@@ -274,24 +274,26 @@ def test_chip_smoke_train_phases_run_on_the_cpu(tmp_path, capsys):
 
 
 # The JAX package's TPU knobs the port does not honour: each is refused
-# (ROADMAP Queue 1 item 5; a mesh above one device, by the port's one
+# (ROADMAP Queue 1 item 5b; a mesh above one device, by the port's one
 # rank per device), never run as if unset.
 KNOBS_REFUSED_BY_EVAL = [
+    ["TPU.MESH_SHAPE", "[2]"],
+]
+# The dtype knobs and REPORT_MFU, ported in item 5a: accepted (a short run),
+# and a dtype the knob does not take raises ValueError.
+KNOBS_PORTED = [
     ["TPU.COMPUTE_DTYPE", "bfloat16"],
     ["TPU.SEP_SLAB_DTYPE", "bfloat16"],
     ["TPU.SEP_REFIT_DTYPE", "bfloat16"],
     ["TPU.SUB_BANK_DTYPE", "bfloat16"],
-    ["TPU.MESH_SHAPE", "[2]"],
 ]
 
 
 @pytest.mark.parametrize("opts,env", [
-    (["TPU.COMPUTE_DTYPE", "bfloat16"], {}),
-    *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL[1:]],
+    *[(o, {}) for o in KNOBS_REFUSED_BY_EVAL],
     (["TPU.FUSED_CYCLE", "True"], {}),
     (["TPU.PAIRWISE_FUSION", "True"], {}),
     (["TPU.COLLECT_UNROLL", "4"], {}),
-    (["TPU.REPORT_MFU", "True"], {}),
     (["RL.PPO.nav_reward_weight", "0.5", "RL.PPO.sep_reward_weight", "0.5"], {}),
 ])
 def test_train_refuses_the_routes_not_ported(tmp_path, monkeypatch, opts, env):
@@ -375,6 +377,58 @@ def test_eval_refuses_the_knobs_not_ported(tmp_path, opts):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item|one rank per"):
         PPOTrainer(cfg, device="cpu")._eval_checkpoint(ckpt)
     assert not os.path.exists(tmp_path / "test_nearTarget_stats_ckpt_0_0.json")
+
+
+@pytest.mark.parametrize("opts", [*KNOBS_PORTED, ["TPU.REPORT_MFU", "True"]],
+                         ids=lambda o: o[0].split(".")[1])
+def test_train_accepts_the_knobs_ported(tmp_path, opts):
+    """Each dtype knob at bfloat16, and REPORT_MFU, trains one cycle (the
+    sub-bank dtype on the sub route) with finite losses."""
+    sub = ["TPU.RIR_MODE", "sub"] if opts[0] == "TPU.SUB_BANK_DTYPE" else []
+    cfg = get_config(EXP, _train_opts(2) + opts + sub, str(tmp_path), "train")
+    trainer = PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8,
+                                                       rir_length=400), device="cpu")
+    trainer.train()
+    pol, sep = trainer.loss_log[0]
+    assert np.isfinite(pol).all() and np.isfinite(sep).all()
+    if opts[0] == "TPU.SUB_BANK_DTYPE":
+        assert trainer._sub_bank.dtype == torch.bfloat16
+    assert (trainer.mfu_info is not None) == (opts[0] == "TPU.REPORT_MFU")
+    shutil.rmtree(cfg.CHECKPOINT_FOLDER)
+
+
+@pytest.mark.parametrize("key", [o[0] for o in KNOBS_PORTED], ids=lambda k: k.split(".")[1])
+def test_a_dtype_knob_of_a_value_no_route_takes_raises(tmp_path, key):
+    """float16 (or any other value) is no dtype the port runs: ValueError in
+    training and evaluation, before anything runs, where the knob would
+    otherwise run in float32 without a word."""
+    opts = [key, "float16"]
+    cfg = get_config(EXP, _train_opts(4) + opts, str(tmp_path), "train")
+    with pytest.raises(ValueError, match="float16"):
+        refuse_unported_knobs(cfg.TPU)
+    with pytest.raises(ValueError, match="float16"):
+        refuse_unported_knobs(cfg.TPU, training=False)
+    with pytest.raises(ValueError, match="float16"):
+        PPOTrainer(cfg, bundle=build_micro_scene(rows=3, cols=3, num_episodes=8,
+                                                 rir_length=400), device="cpu").train()
+    assert not os.path.exists(cfg.CHECKPOINT_FOLDER)
+
+
+@pytest.mark.parametrize("opts", KNOBS_PORTED, ids=lambda o: o[0].split(".")[1])
+def test_eval_accepts_the_dtype_knobs(tmp_path, opts):
+    """The dtype knobs at bfloat16 evaluate (the device evaluator here, in
+    float32 whatever they say, as the JAX package's)."""
+    ckpt = str(tmp_path / "ckpt.0.pth")
+    torch.manual_seed(0)
+    policy = Move2HearPolicy(3, HID, extra_depth=True, use_ddppo=True)
+    save_checkpoint(ckpt, {"state_dict": policy.state_dict(), "config": {}})
+    cfg = get_config("configs/test/nearTarget.yaml",
+                     ["RL.PPO.hidden_size", str(HID), "EVAL_EPISODE_COUNT", "2",
+                      "TPU.DEVICE_EVAL_MIN_EPISODES", "2", "TPU.MAX_RIR_LENGTH", "400", *opts],
+                     str(tmp_path), "eval")
+    agg = PPOTrainer(cfg, device="cpu")._eval_checkpoint(ckpt)
+    assert np.isfinite(agg["mono_l2_last"]["mean"])
+    shutil.rmtree(tmp_path)  # the checkpoint
 
 
 def test_load_pretrained_passive_separators_copies_only_the_passive_subtrees():
