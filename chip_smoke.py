@@ -103,9 +103,11 @@ Phases, each printing its own line(s) with its seconds:
      rate; both ranks' final parameters bitwise equal, each rank's launch
      counters equal to DDPPO_TRAIN_LAUNCHES. ddppo-parity (TF32 off): 2 x 7
      against 1 x 14, losses within TRAIN_TOL (relative, or absolute over
-     1e-2 below it) after one update and refit and after a whole cycle;
-     every parameter change within TRAIN_DP_TOL in norm after the one
-     update and refit (phase 9's scope; the whole cycle's are printed).
+     1e-2 below it) after one update and refit and after a whole cycle in
+     float32, and after one update and refit in float64 (the DDPPO tests'
+     rank launcher, tests/_torch_ddppo_rank.py, M2H_TEST_FLOAT64); every
+     parameter change of the float64 pair within TRAIN_DP_TOL in norm
+     (phase 9's scope; the float32 pairs' are printed, a ReLU kink apart).
      ddppo-sync: one cycle with short_rollout_threshold 0.5 on the real
      TCPStore: equal executed steps and parameters on both ranks.
      ddppo-preempt: SIGUSR2 to both ranks once their handlers are set; both
@@ -131,6 +133,17 @@ Phases, each printing its own line(s) with its seconds:
      samples/s beside phase 6's); bf16-parity: the card's bfloat16 policy
      forward against the CPU's, under the CPU tests' discriminator; a
      2-episode host eval in bfloat16 (BF16_HOST_EVAL_LAUNCHES);
+ 8n. fusion routes: phase 8's train CLI with TPU.FUSED_CYCLE True, then
+     with TPU.PAIRWISE_FUSION True, 2 cycles each from phase 6's
+     separators: the JAX package's fusion routing (frames stored in the
+     rollouts, no pose bank, no FLOP count), launch counters equal to
+     TRAIN_LAUNCHES, warm env-steps/s and the warm update's seconds beside
+     phase 8's rate, peak device memory, the eval CLI on each checkpoint;
+     fusion-forward: TF32 off, the update's forward over the first
+     collected rollout before any optimizer step, over the frames against
+     over the pose bank, within FUSION_FORWARD_TOL; fusion-bench: phase
+     8k's run with TPU.FUSED_CYCLE (mfu_info left None), its warm rate and
+     peak memory beside phase 8k's;
  9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -274,6 +287,15 @@ BENCH_OPTS = [
     "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.REPORT_MFU", "True",
 ]
 BENCH_SCENE = dict(rows=4, cols=4, num_episodes=224, near_target=True, rir_length=16000)
+# Phase 8n: the JAX package's fusion knobs on phase 8's train CLI, each with
+# phase 8's 552 launches (the stored frames change the update's visual
+# input, not its separator calls), and FUSED_CYCLE at the bench shape with
+# phase 8k's; (knob, label) of each route.
+FUSION_ROUTES = (("FUSED_CYCLE", "fusion-train"), ("PAIRWISE_FUSION", "pairwise-train"))
+# the update's forward over the stored frames against over the pose bank,
+# relative to the largest output: the same float32 convolutions over other
+# batches (280 frames, 64 poses), TF32 off
+FUSION_FORWARD_TOL = 1e-5
 # bf16-pretrain: 2 epochs x (4 train steps + 2 validation batches of 64).
 BF16_PRETRAIN_EPOCHS = 2
 BF16_PRETRAIN_LAUNCHES = _bf16_launches(12)
@@ -1205,7 +1227,7 @@ def scale_parity_phase(torch, run_dir, device="cuda", opts=(), fixture=SCALE_PAR
     ))
 
 
-def train_eval_phase(run_dir, ckpt, device="cuda", opts=()):
+def train_eval_phase(run_dir, ckpt, device="cuda", opts=(), label="train"):
     """The end of phase 8: the eval CLI with configs/test/nearTarget.yaml on
     the checkpoint the near-target training wrote."""
     from move2hear_tpu_torch.main import main as port_main
@@ -1219,7 +1241,7 @@ def train_eval_phase(run_dir, ckpt, device="cuda", opts=()):
     for k in ("mono_l2_last", "mem_l2_last", "bin_l2_all"):
         if not all(math.isfinite(v) for v in agg[k].values()):
             fail(f"eval of the trained checkpoint: {k} not finite: {agg[k]}")
-    phase("train", t0, (
+    phase(label, t0, (
         f"eval of {os.path.basename(ckpt)}: {tm['episodes']} episodes, "
         f"mono_l2_last {agg['mono_l2_last']['mean']:.6f}, mem_l2_last "
         f"{agg['mem_l2_last']['mean']:.6f}, bin_l2_all {agg['bin_l2_all']['mean']:.6f}"
@@ -1964,10 +1986,19 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def launch_ranks(run_dir, tag, opts, device="cuda:0", env=None, ranks=DDPPO_RANKS):
+# the DDPPO tests' rank launcher (tests/_torch_ddppo_rank.py): the train CLI
+# with test hooks, saving the final weights and losses with torch.save; its
+# M2H_TEST_FLOAT64 runs the policy in float64 on the float32 render
+RANK_HELPER = os.path.join(REPO, "tests", "_torch_ddppo_rank.py")
+
+
+def launch_ranks(run_dir, tag, opts, device="cuda:0", env=None, ranks=DDPPO_RANKS,
+                 helper=False):
     """`ranks` processes of the train CLI with configs/train/nearTarget.yaml
     in run_dir/tag, a gloo world on the loopback; each writes its report to
-    run_dir/tag/report{rank}.json. Returns (Popens, report paths)."""
+    run_dir/tag/report{rank}.json (with `helper`, through RANK_HELPER, whose
+    run_dir/tag/report{rank}.pt holds the final weights and the losses and
+    which writes no checkpoint). Returns (Popens, report paths)."""
     out = os.path.join(run_dir, tag)
     os.makedirs(out, exist_ok=True)
     port = free_port()
@@ -1977,11 +2008,12 @@ def launch_ranks(run_dir, tag, opts, device="cuda:0", env=None, ranks=DDPPO_RANK
              "RANK": str(r), "LOCAL_RANK": str(r),
              "WORLD_SIZE": str(ranks), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
              **(env or {})}
-        reports.append(os.path.join(out, f"report{r}.json"))
+        reports.append(os.path.join(out, f"report{r}." + ("pt" if helper else "json")))
+        entry = ([RANK_HELPER, reports[-1]] if helper
+                 else ["-m", "move2hear_tpu_torch.main", "--report", reports[-1]])
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "move2hear_tpu_torch.main", "--run-type", "train",
-             "--exp-config", TRAIN_EXP, "--model-dir", out, "--device", device,
-             "--report", reports[-1], *TRAIN_OPTS, *DDPPO_OPTS, *opts],
+            [sys.executable, *entry, "--run-type", "train", "--exp-config", TRAIN_EXP,
+             "--model-dir", out, "--device", device, *TRAIN_OPTS, *DDPPO_OPTS, *opts],
             cwd=REPO, env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs, reports
 
@@ -2002,6 +2034,11 @@ def wait_ranks(label, procs, reports, timeout=600):
             fail(f"{label}: rank {r} exited {p.returncode}:\n{out[-6000:]}")
     result = []
     for path in reports:
+        if path.endswith(".pt"):
+            import torch
+
+            result.append(torch.load(path, map_location="cpu", weights_only=False))
+            continue
         with open(path) as f:
             result.append(json.load(f))
     return result, outs
@@ -2016,7 +2053,6 @@ def ddppo_phase(torch, card, run_dir, pretrained, device="cuda:0", opts=(),
     import numpy as np
 
     from move2hear_tpu_torch.config import get_config
-    from move2hear_tpu_torch.rl.trainer import PPOTrainer
     from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 
     pre = ["RL.PPO.pretrained_passive_separators_ckpt", pretrained, *opts]
@@ -2057,60 +2093,12 @@ def ddppo_phase(torch, card, run_dir, pretrained, device="cuda:0", opts=(),
           f"(sha256 {ranks[0]['params_sha256'][:16]}); per-rank launches {ranks[0]['launches']}",
           flush=True)
 
-    # ddppo-parity (TF32 off), beside the sync run: one update and refit
-    # (phase 9's scope, where TRAIN_DP_TOL is set), and a whole cycle
-    t0 = time.perf_counter()
-    tf32_off = {**env, "NVIDIA_TF32_OVERRIDE": "0"}
-    scopes = {"update": ["NUM_UPDATES", "1", "RL.PPO.num_updates_per_cycle", "1"],
-              "cycle": ["NUM_UPDATES", "6"]}
-    runs = {}
-    for scope, upd in scopes.items():
-        runs[scope] = (
-            launch_ranks(run_dir, f"parity_world_{scope}", [*pre, *upd], device, tf32_off),
-            launch_ranks(run_dir, f"parity_single_{scope}", [*pre, *upd, "NUM_PROCESSES", "14"],
-                         device, tf32_off, ranks=1),
-        )
     y_procs, y_reports = launch_ranks(run_dir, "sync", [
         *pre, "NUM_UPDATES", "6", "RL.PPO.short_rollout_threshold", "0.5",
         "RL.PPO.sync_frac", "0.5"], device, env)
-    cfg = get_config(TRAIN_EXP, [*TRAIN_OPTS, *pre], os.path.join(run_dir, "init"), "train")
-    start = {k: v.numpy() for k, v in PPOTrainer(cfg, device="cpu")._new_policy().state_dict().items()}
-    readings = {}
-    for scope, ((w_procs, w_reports), (s_procs, s_reports)) in runs.items():
-        world, _ = wait_ranks("ddppo-parity", w_procs, w_reports)
-        (single,), _ = wait_ranks("ddppo-parity", s_procs, s_reports)
-        ours, ref = (load_checkpoint(os.path.join(run_dir, f"parity_{kind}_{scope}", "data",
-                                                  "ckpt.1.pth"))["state_dict"]
-                     for kind in ("world", "single"))
-        la, lb = (np.concatenate([np.ravel(x) for x in rep["loss_log"][0]])
-                  for rep in (world[0], single))
-        # relative, but for a loss below 1e-2 (the action loss of an epoch
-        # starts at the mean of normalised advantages, 0 but for rounding)
-        loss = float(np.max(np.abs(la - lb) / np.maximum(np.abs(lb), 1e-2)))
-        dp = {k: float(np.linalg.norm(ours[k].numpy() - b.numpy())
-                       / np.linalg.norm(b.numpy() - start[k]))
-              for k, b in ref.items() if b.is_floating_point() and "running_" not in k
-              and not np.array_equal(b.numpy(), start[k])}
-        readings[scope] = (loss, sorted(dp.items(), key=lambda kv: -kv[1])[:3], len(dp))
+    ddppo_parity(torch, run_dir, pre, device, env)
     sync, _ = wait_ranks("ddppo-sync", y_procs, y_reports)
-    for scope, (loss, top, _) in readings.items():
-        if not loss <= TRAIN_TOL:
-            fail(f"ddppo-parity ({scope}): losses of 2 x 7 against 1 x 14 differ by {loss} "
-                 f"relative (tol {TRAIN_TOL})")
-    loss, top, n = readings["update"]
-    if not top[0][1] <= TRAIN_DP_TOL:
-        fail(f"ddppo-parity: parameter change of {top[0][0]} after one update and refit "
-             f"differs by {top[0][1]} relative in norm (tol {TRAIN_DP_TOL})")
-    c_loss, c_top, c_n = readings["cycle"]
-    phase("ddppo-parity", t0, (
-        f"TF32 off, 2 ranks x 7 envs against 1 rank x 14 (losses relative, below 1e-2 "
-        f"absolute over 1e-2, tol {TRAIN_TOL}): one update and refit, losses within "
-        f"{loss:.3e}, parameter change of {n} tensors within "
-        + ", ".join(f"{v:.3e} ({k})" for k, v in top) + f" in norm (tol {TRAIN_DP_TOL}); "
-        f"the whole cycle (6 updates and refits), losses within {c_loss:.3e}, parameter "
-        f"change of {c_n} tensors within " + ", ".join(f"{v:.3e} ({k})" for k, v in c_top)
-        + " in norm (not gated: the parts compound through 48 Adam steps and 5 collects)"
-    ))
+    cfg = get_config(TRAIN_EXP, [*TRAIN_OPTS, *pre], os.path.join(run_dir, "init"), "train")
     fills = [rep["sep_fill"] for rep in sync]
     if fills[0] != fills[1] or sync[0]["params_sha256"] != sync[1]["params_sha256"]:
         fail(f"ddppo-sync: the ranks executed {fills} refit rows, parameters "
@@ -2156,6 +2144,86 @@ def ddppo_phase(torch, card, run_dir, pretrained, device="cuda:0", opts=(),
         f"and removed the state"
     ))
     return {k: sum(rep["launches"][k] for rep in ranks) for k in launches}
+
+
+def ddppo_parity(torch, run_dir, pre, device="cuda:0", env=None):
+    """Phase 8i's ddppo-parity (TF32 off): 2 ranks x 7 envs against 1 rank x
+    14 from the same start (`pre`: the separators' opts), in float32 after
+    one update and refit and after a whole cycle, and in float64 after one
+    update and refit; fails past the gates, else prints the readings."""
+    import numpy as np
+
+    from move2hear_tpu_torch.config import get_config
+    from move2hear_tpu_torch.rl.trainer import PPOTrainer
+    from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+
+    env = env or {}
+    # one update and refit is phase 9's scope, where TRAIN_DP_TOL is set;
+    # its float64 pair ("update64") is the one the parameter gate holds. Two
+    # float32 runs of different batch shapes can put a pre-activation within
+    # rounding of zero on the other side of a ReLU, and Adam (eps 1e-5)
+    # carries that into the step (ROADMAP Queue 3: one float32 reading in
+    # eight failed 3e-4); float64 rounds some 1e-9 below such kinks
+    t0 = time.perf_counter()
+    tf32_off = {**env, "NVIDIA_TF32_OVERRIDE": "0"}
+    scopes = {"update": ["NUM_UPDATES", "1", "RL.PPO.num_updates_per_cycle", "1"],
+              "cycle": ["NUM_UPDATES", "6"]}
+    scopes["update64"] = scopes["update"]
+    runs = {}
+    for scope, upd in scopes.items():
+        f64 = scope.endswith("64")
+        e = {**tf32_off, "M2H_TEST_FLOAT64": "1"} if f64 else tf32_off
+        runs[scope] = (
+            launch_ranks(run_dir, f"parity_world_{scope}", [*pre, *upd], device, e, helper=f64),
+            launch_ranks(run_dir, f"parity_single_{scope}", [*pre, *upd, "NUM_PROCESSES", "14"],
+                         device, e, ranks=1, helper=f64),
+        )
+    cfg = get_config(TRAIN_EXP, [*TRAIN_OPTS, *pre], os.path.join(run_dir, "init"), "train")
+    start = {k: v.numpy() for k, v in PPOTrainer(cfg, device="cpu")._new_policy().state_dict().items()}
+    readings = {}
+    for scope, ((w_procs, w_reports), (s_procs, s_reports)) in runs.items():
+        world, _ = wait_ranks("ddppo-parity", w_procs, w_reports)
+        (single,), _ = wait_ranks("ddppo-parity", s_procs, s_reports)
+        if scope.endswith("64"):
+            ours, ref = world[0]["state_dict"], single["state_dict"]
+            if ref["critic.fc.weight"].dtype != torch.float64:
+                fail(f"ddppo-parity: the float64 runs trained in {ref['critic.fc.weight'].dtype}")
+        else:
+            ours, ref = (load_checkpoint(os.path.join(run_dir, f"parity_{kind}_{scope}", "data",
+                                                      "ckpt.1.pth"))["state_dict"]
+                         for kind in ("world", "single"))
+        la, lb = (np.concatenate([np.ravel(x) for x in rep["loss_log"][0]])
+                  for rep in (world[0], single))
+        # relative, but for a loss below 1e-2 (the action loss of an epoch
+        # starts at the mean of normalised advantages, 0 but for rounding)
+        loss = float(np.max(np.abs(la - lb) / np.maximum(np.abs(lb), 1e-2)))
+        dp = {k: float(np.linalg.norm(ours[k].numpy() - b.numpy())
+                       / np.linalg.norm(b.numpy() - start[k]))
+              for k, b in ref.items() if b.is_floating_point() and "running_" not in k
+              and not np.array_equal(b.numpy(), start[k])}
+        readings[scope] = (loss, sorted(dp.items(), key=lambda kv: -kv[1])[:3], len(dp))
+    for scope, (loss, top, _) in readings.items():
+        if not loss <= TRAIN_TOL:
+            fail(f"ddppo-parity ({scope}): losses of 2 x 7 against 1 x 14 differ by {loss} "
+                 f"relative (tol {TRAIN_TOL})")
+    d_loss, d_top, d_n = readings["update64"]
+    if not d_top[0][1] <= TRAIN_DP_TOL:
+        fail(f"ddppo-parity: parameter change of {d_top[0][0]} after one float64 update and "
+             f"refit differs by {d_top[0][1]} relative in norm (tol {TRAIN_DP_TOL})")
+    loss, top, n = readings["update"]
+    c_loss, c_top, c_n = readings["cycle"]
+    phase("ddppo-parity", t0, (
+        f"TF32 off, 2 ranks x 7 envs against 1 rank x 14 (losses relative, below 1e-2 "
+        f"absolute over 1e-2, tol {TRAIN_TOL}): one update and refit in float64, losses "
+        f"within {d_loss:.3e}, parameter change of {d_n} tensors within "
+        + ", ".join(f"{v:.3e} ({k})" for k, v in d_top) + f" in norm (tol {TRAIN_DP_TOL}); "
+        f"in float32, losses within {loss:.3e}, parameter change of {n} tensors within "
+        + ", ".join(f"{v:.3e} ({k})" for k, v in top) + " in norm (not gated: a ReLU "
+        f"kink apart); the whole cycle (6 updates and refits) in float32, losses within "
+        f"{c_loss:.3e}, parameter change of {c_n} tensors within "
+        + ", ".join(f"{v:.3e} ({k})" for k, v in c_top)
+        + " in norm (not gated: the parts compound through 48 Adam steps and 5 collects)"
+    ))
 
 
 def mfu_line(info, rate, card_name):
@@ -2204,12 +2272,14 @@ def bf16_train_phase(torch, kernels, card, run_dir, pretrained, f32_rate, device
 
 
 def bench_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=BENCH_LAUNCHES,
-                scene=BENCH_SCENE):
+                scene=BENCH_SCENE, label="bench-shape", stats=None):
     """Phase 8k: bench.py's default device-mode shape through the port's
     own config (no exp yaml, BENCH_OPTS) and micro-scene, 2 cycles, with
     the launch counters set to 0 just before it and read just after.
     Returns the path's launch counts. (`opts`, `launches` and `scene` let a
-    rehearsal run it small on the CPU.)"""
+    rehearsal run it small on the CPU; phase 8n's fusion-bench, `label`,
+    adds TPU.FUSED_CYCLE, under which REPORT_MFU must leave mfu_info
+    None.) `stats`, a dict, receives the warm rate and the peak memory."""
     import numpy as np
 
     from move2hear_tpu_torch.config import get_config
@@ -2232,29 +2302,136 @@ def bench_phase(torch, kernels, card, run_dir, device="cuda", opts=(), launches=
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else float("nan")
     if counts != launches:
-        fail(f"bench-shape-path kernel launches {counts}, expected {launches}")
+        fail(f"{label}-path kernel launches {counts}, expected {launches}")
     if trainer._rir_mode != "dense" or len(trainer.cycle_log) != 2:
-        fail(f"bench-shape: route {trainer._rir_mode}, {len(trainer.cycle_log)} cycles")
+        fail(f"{label}: route {trainer._rir_mode}, {len(trainer.cycle_log)} cycles")
+    fused = bool(cfg.TPU.FUSED_CYCLE)
     for i, c in enumerate(trainer.cycle_log):
-        phase("bench-shape", t0, (
-            f"cycle {i} ({'cold, FLOPs counted' if i == 0 else 'warm'}): {c['env_steps']} "
+        phase(label, t0, (
+            f"cycle {i} ({'cold' + ', FLOPs counted' * (not fused) if i == 0 else 'warm'}): "
+            f"{c['env_steps']} "
             f"env-steps in {c['total']:.3f} s = {c['env_steps'] / c['total']:.1f} env-steps/s; "
             f"collect {c['collect']:.3f} s, policy update {c['update']:.3f} s, refit "
             f"{c['refit']:.3f} s ({card})"
         ))
     for i, (pol, sep) in enumerate(trainer.loss_log):
         if not (np.isfinite(pol).all() and np.isfinite(sep).all()):
-            fail(f"bench-shape cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
-    print_mfu_info("bench-shape", trainer.mfu_info)
+            fail(f"{label} cycle {i}: losses not finite: pol {pol.tolist()} sep {sep.tolist()}")
     warm = trainer.cycle_log[1]
     rate = warm["env_steps"] / warm["total"]
     name = torch.cuda.get_device_name(0) if on_cuda else "cpu"
-    print(f"bench-shape: {cfg.NUM_PROCESSES} envs, hidden {cfg.RL.PPO.hidden_size}, bfloat16; "
-          f"set-up {trainer.setup_s:.3f} s, warm {rate:.1f} env-steps/s, end to end "
+    if fused:
+        if trainer.mfu_info is not None:
+            fail(f"{label}: REPORT_MFU counted FLOPs under TPU.FUSED_CYCLE")
+        mfu = "REPORT_MFU skipped under TPU.FUSED_CYCLE, as the JAX package's probe"
+    else:
+        print_mfu_info(label, trainer.mfu_info)
+        mfu = mfu_line(trainer.mfu_info, rate, name)
+    print(f"{label}: {cfg.NUM_PROCESSES} envs, hidden {cfg.RL.PPO.hidden_size}, bfloat16"
+          f"{', TPU.FUSED_CYCLE' * fused}; set-up {trainer.setup_s:.3f} s, warm {rate:.1f} "
+          f"env-steps/s, end to end "
           f"{sum(c['env_steps'] for c in trainer.cycle_log) / wall:.1f} over {wall:.3f} s; "
-          f"{mfu_line(trainer.mfu_info, rate, name)}; peak device memory allocated {peak:.2f} GB; "
-          f"bench-shape-path launches: {counts} ({card})", flush=True)
+          f"{mfu}; peak device memory allocated {peak:.2f} GB; "
+          f"{label}-path launches: {counts} ({card})", flush=True)
+    if stats is not None:
+        stats.update(rate=rate, peak_gb=peak)
     return counts
+
+
+def fusion_phase(torch, kernels, card, run_dir, pretrained, f32_rate, device="cuda", opts=(),
+                 launches=TRAIN_LAUNCHES, forward_opts=None):
+    """Phase 8n: phase 8's train CLI with TPU.FUSED_CYCLE and then with
+    TPU.PAIRWISE_FUSION, 2 cycles each from phase 6's separators: the same
+    loops under the JAX package's fusion routing (the rollouts store the
+    frames; no pose bank, sync, sub-banks or FLOP count), each with phase
+    8's launches, its warm rate beside phase 8's, its update seconds and its
+    peak memory, and the eval CLI on its checkpoint; then
+    fusion_forward_check. Returns the launch counts by path. (`device`,
+    `opts`, `launches` and `forward_opts`, the forward check's own opts, let
+    a rehearsal run it small on the CPU.)"""
+    by_path = {}
+    on_cuda = device == "cuda"
+    for knob, label in FUSION_ROUTES:
+        if on_cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        counts, ckpt, trainer = train_phase(
+            torch, kernels, card, os.path.join(run_dir, label), label=label, device=device,
+            opts=[f"TPU.{knob}", "True", *opts], launches=launches, pretrained=pretrained)
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else float("nan")
+        if trainer._pose_obs or trainer._rir_mode != "dense" or trainer.mfu_info is not None:
+            fail(f"{label}: pose bank {trainer._pose_obs}, route {trainer._rir_mode}, "
+                 f"mfu_info {trainer.mfu_info}")
+        warm = trainer.cycle_log[1]
+        print(f"{label}: TPU.{knob} True, frames in the rollouts: warm "
+              f"{warm['env_steps'] / warm['total']:.1f} env-steps/s against phase 8's "
+              f"{f32_rate:.1f} in this run; policy update {warm['update']:.3f} s of the warm "
+              f"cycle; peak device memory allocated {peak:.2f} GB ({card})", flush=True)
+        del trainer
+        train_eval_phase(run_dir, ckpt, device=device, opts=opts, label=label)
+        by_path[label.replace("-", "_")] = counts
+    fusion_forward_check(torch, run_dir, pretrained, device=device,
+                         opts=opts if forward_opts is None else forward_opts)
+    return by_path
+
+
+def fusion_forward_check(torch, run_dir, pretrained, device="cuda", opts=()):
+    """The end of phase 8n: the policy update's forward (values, action
+    log-probs, entropy) over the first collected rollout, before any
+    optimizer step, on the default route (pose indices and the pose bank)
+    and under TPU.FUSED_CYCLE (the stored frames), TF32 off: the same
+    actions, and each output within FUSION_FORWARD_TOL of the other,
+    relative to its largest magnitude."""
+    import move2hear_tpu_torch.rl.trainer as rt
+    from move2hear_tpu_torch.main import main as port_main
+    from move2hear_tpu_torch.rl.ppo import rollout_forward
+
+    t0 = time.perf_counter()
+    seen = {}
+    make = rt.make_update_pol
+
+    def recording(policy, cfg, n, pose_bank=False, **kwargs):
+        update = make(policy, cfg, n, pose_bank=pose_bank, **kwargs)
+
+        def run(state, rollouts, *args, banks=None, **kw):
+            if pose_bank not in seen:
+                with torch.no_grad():
+                    out = rollout_forward(policy, rollouts, banks, pose_bank)
+                seen[pose_bank] = ([t.double().cpu() for t in out], rollouts["actions"].cpu())
+            return update(state, rollouts, *args, banks=banks, **kw)
+        return run
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rt.make_update_pol = recording
+    try:
+        for knob in ("", "TPU.FUSED_CYCLE"):
+            port_main(["--run-type", "train", "--exp-config", TRAIN_EXP, "--model-dir",
+                       os.path.join(run_dir, "fusion_forward", knob or "default"),
+                       "--device", device, "NUM_UPDATES", "1", "RL.PPO.num_updates_per_cycle",
+                       "1", "RL.PPO.pretrained_passive_separators_ckpt", pretrained,
+                       *([knob, "True"] if knob else []), *opts])
+    finally:
+        rt.make_update_pol = make
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if set(seen) != {True, False}:
+        fail(f"fusion-forward: the runs took pose_bank {sorted(seen)}, expected both")
+    (pose, pose_acts), (frames, frame_acts) = seen[True], seen[False]
+    if not torch.equal(pose_acts, frame_acts):
+        fail("fusion-forward: the two routes' collects sampled other actions")
+    errs = {}
+    for name, a, b in zip(("values", "action log-probs", "entropy"), frames, pose):
+        errs[name] = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if not errs[name] <= FUSION_FORWARD_TOL:
+            fail(f"fusion-forward: {name} over the frames and over the pose bank differ by "
+                 f"{errs[name]} relative (tol {FUSION_FORWARD_TOL})")
+    phase("fusion-forward", t0, (
+        f"TF32 off, the update's forward over a rollout of {tuple(pose_acts.shape[:2])} "
+        f"(steps, envs) before any optimizer step: over the stored frames (TPU.FUSED_CYCLE) "
+        f"against over the pose bank (default route), equal actions, "
+        + ", ".join(f"{k} within {v:.3e}" for k, v in errs.items())
+        + f" of the largest (tol {FUSION_FORWARD_TOL})"
+    ))
 
 
 def bf16_sub_phase(torch, run_dir, device="cuda", opts=(), fixture=SCALE_PARITY_FIXTURE,
@@ -2522,7 +2699,9 @@ def main():
         bf16_launches, bf16_ckpt = bf16_train_phase(
             torch, kernels, card, os.path.join(run_dir, "bf16"), pretrained,
             f32_warm["env_steps"] / f32_warm["total"])
-        bench_launches = bench_phase(torch, kernels, card, os.path.join(run_dir, "bench"))
+        bench_stats = {}
+        bench_launches = bench_phase(torch, kernels, card, os.path.join(run_dir, "bench"),
+                                     stats=bench_stats)
         bf16_sub_phase(torch, os.path.join(run_dir, "bf16_sub"))
         bf16_pre_launches, _ = pretrain_phase(
             torch, kernels, card, os.path.join(run_dir, "bf16_pretrain"),
@@ -2532,6 +2711,16 @@ def main():
               f"float32 {pre_stats['warm_rate']:.1f} in this run ({card})", flush=True)
         bf16_parity_phase(torch)
         bf16_host_eval_launches = bf16_host_eval_phase(torch, kernels, card, run_dir, bf16_ckpt)
+        fusion_launches = fusion_phase(torch, kernels, card, run_dir, pretrained,
+                                       f32_warm["env_steps"] / f32_warm["total"])
+        fused_bench = {}
+        fusion_launches["fusion_bench"] = bench_phase(
+            torch, kernels, card, os.path.join(run_dir, "fusion_bench"),
+            opts=["TPU.FUSED_CYCLE", "True"], label="fusion-bench", stats=fused_bench)
+        print(f"fusion-bench: warm {fused_bench['rate']:.1f} env-steps/s against phase 8k's "
+              f"{bench_stats['rate']:.1f} in this run; peak device memory allocated "
+              f"{fused_bench['peak_gb']:.2f} GB against {bench_stats['peak_gb']:.2f} ({card})",
+              flush=True)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)
@@ -2542,7 +2731,7 @@ def main():
                "far_eval": far_eval_launches, "scale_train": scale_launches, **host_launches,
                "ddppo_train": ddppo_launches, "bf16_train": bf16_launches,
                "bench_shape": bench_launches, "bf16_pretrain": bf16_pre_launches,
-               "bf16_host_eval": bf16_host_eval_launches}
+               "bf16_host_eval": bf16_host_eval_launches, **fusion_launches}
     for name, row in rows.items():
         # the launches of every path's runs (path_counts failed any path
         # that launched a kernel it does not name)

@@ -7,9 +7,10 @@ BASE_TASK_CONFIG YAML -> CLI opts, then frozen.
 The keys are the JAX package's, so the YAMLs under configs/ merge
 unchanged. Of its `TPU` group the port keeps, under the same name, only the
 keys its code reads: COMPUTE_DTYPE, DEVICE_ENV, DEVICE_EVAL_MIN_EPISODES,
-MAX_RIR_LENGTH, PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, SEP_SLAB_DTYPE,
-SEP_REFIT_DTYPE, SUB_BANK_ROWS, SUB_BANK_DTYPE, SUB_PREFETCH, RIR_MODE,
-STATS_FETCH_INTERVAL and REPORT_MFU.
+COLLECT_UNROLL, FUSED_CYCLE, PAIRWISE_FUSION, MAX_RIR_LENGTH,
+PRECOMPUTE_RIR_RFFT, MAX_DEVICE_BANK_BYTES, SEP_SLAB_DTYPE, SEP_REFIT_DTYPE,
+SUB_BANK_ROWS, SUB_BANK_DTYPE, SUB_PREFETCH, RIR_MODE, STATS_FETCH_INTERVAL
+and REPORT_MFU.
 """
 
 import os
@@ -118,6 +119,18 @@ def default_config() -> Config:
     c.TPU.DEVICE_EVAL_MIN_EPISODES = 64  # route eval to the batched device
     # evaluator at/above this episode count; below it the host evaluator
     # (eval/evaluator.py) runs
+    c.TPU.COLLECT_UNROLL = 1  # the JAX package's lax.scan unroll of the
+    # collect's time loop: 0 or more (a negative value raises ValueError);
+    # the port's collect is a Python loop, which every value runs alike
+    c.TPU.FUSED_CYCLE = False  # the JAX package runs a whole cycle as one
+    # program; here the same loops run under its fused route's rules:
+    # frames stored in the rollouts (no pose bank), no preemptive sync, no
+    # sub-banks (auto takes the host path instead, sub raises ValueError),
+    # no REPORT_MFU, the lr and clip decay computed in float32
+    # (1 - float32(update) / NUM_UPDATES), SEP_SLAB_DTYPE unapplied
+    c.TPU.PAIRWISE_FUSION = False  # the JAX package fuses each collect with
+    # its policy update; here the FUSED_CYCLE rules above but the decay and
+    # SEP_SLAB_DTYPE, which stay the default route's
     c.TPU.MAX_RIR_LENGTH = 16000     # static pad length for RIR tensors
     c.TPU.PRECOMPUTE_RIR_RFFT = True  # cache rffts of the whole RIR bank,
     # removing the per-step RIR forward FFTs

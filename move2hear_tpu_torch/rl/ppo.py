@@ -212,6 +212,53 @@ def _epoch_perms(generator: Optional[torch.Generator], ppo_epoch: int, num_envs:
     return perms[:, : envs_per * num_mini_batch].reshape(-1, envs_per)
 
 
+def _rollout_minibatch(rollouts, sel) -> Dict:
+    """The update's inputs of the envs `sel` (a slice or an index tensor)
+    of a rollout, but for the advantages and the step weights."""
+    return {
+        "obs": {k: v[:-1, sel] for k, v in rollouts["observations"].items()},
+        "hidden0": rollouts["hidden"][0, sel],
+        "masks": rollouts["masks"][:-1, sel],
+        "actions": rollouts["actions"][:, sel],
+        "pred_binSepMasks": rollouts["pred_binSepMasks"][:, sel],
+        "pred_mono": rollouts["pred_mono"][:, sel],
+        "pred_monoFromMem": rollouts["prev_pred_monoFromMem"][1:, sel],
+        "value_preds": rollouts["value_preds"][:-1, sel],
+        "returns": rollouts["returns"][:-1, sel],
+        "old_log_probs": rollouts["action_log_probs"][:, sel],
+    }
+
+
+def _update_forward(policy: Move2HearPolicy, mb, banks, pose_bank: bool,
+                    per_step_entropy: bool):
+    """The policy update's forward over a minibatch: (values, action
+    log-probs, entropy, ...) of ``evaluate_actions``; with `pose_bank` the
+    visual encoder runs once over the S*V*4 poses of `banks` and each step
+    gathers its row, else it runs over the stored frames."""
+    obs = mb["obs"]
+    if pose_bank:
+        def flat(b):
+            return None if b is None else b.reshape((-1,) + tuple(b.shape[3:]))
+
+        vis = policy.visual_features(flat(banks.get("rgb")), flat(banks.get("depth")))
+        obs = {k: v for k, v in obs.items() if k != "pose"}
+        obs["visual_feats"] = vis[mb["obs"]["pose"]]
+    return policy.evaluate_actions(
+        obs, mb["hidden0"], mb["masks"], mb["actions"], mb["pred_binSepMasks"],
+        mb["pred_mono"], mb["pred_monoFromMem"], per_step_entropy=per_step_entropy,
+    )
+
+
+def rollout_forward(policy: Move2HearPolicy, rollouts, banks=None, pose_bank: bool = False):
+    """(values, action log-probs, entropy) of the policy update's forward
+    over a whole rollout, as an epoch of one minibatch runs it before its
+    optimizer step: over pose indices and `banks` with `pose_bank`, over the
+    stored frames without."""
+    values, log_probs, entropy, _ = _update_forward(
+        policy, _rollout_minibatch(rollouts, slice(None)), banks, pose_bank, False)
+    return values, log_probs, entropy
+
+
 def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
                     pose_bank: bool = False, with_validity: bool = False):
     """The policy update: ``update(state, rollouts, generator, lr_scale,
@@ -242,18 +289,7 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
     shares = size > 1 or with_validity
 
     def minibatch_loss(mb, clip_param, banks, count):
-        obs = mb["obs"]
-        if pose_bank:
-            def flat(b):
-                return None if b is None else b.reshape((-1,) + tuple(b.shape[3:]))
-
-            vis = policy.visual_features(flat(banks.get("rgb")), flat(banks.get("depth")))
-            obs = {k: v for k, v in obs.items() if k != "pose"}
-            obs["visual_feats"] = vis[mb["obs"]["pose"]]
-        values, log_probs, entropy, _ = policy.evaluate_actions(
-            obs, mb["hidden0"], mb["masks"], mb["actions"], mb["pred_binSepMasks"],
-            mb["pred_mono"], mb["pred_monoFromMem"], per_step_entropy=shares,
-        )
+        values, log_probs, entropy, _ = _update_forward(policy, mb, banks, pose_bank, shares)
         ratio = torch.exp(log_probs - mb["old_log_probs"])
         surr1 = ratio * mb["adv"]
         surr2 = torch.clamp(ratio, 1.0 - clip_param, 1.0 + clip_param) * mb["adv"]
@@ -309,20 +345,7 @@ def make_update_pol(policy: Move2HearPolicy, cfg: PPOConfig, num_envs: int,
         aux = []
         for idx in perms:
             sel = slice(None) if idx is None else _rank_members(idx, rank, num_envs, size)
-            mb = {
-                "obs": {k: v[:-1, sel] for k, v in rollouts["observations"].items()},
-                "hidden0": rollouts["hidden"][0, sel],
-                "masks": rollouts["masks"][:-1, sel],
-                "actions": rollouts["actions"][:, sel],
-                "pred_binSepMasks": rollouts["pred_binSepMasks"][:, sel],
-                "pred_mono": rollouts["pred_mono"][:, sel],
-                "pred_monoFromMem": rollouts["prev_pred_monoFromMem"][1:, sel],
-                "value_preds": rollouts["value_preds"][:-1, sel],
-                "returns": rollouts["returns"][:-1, sel],
-                "adv": adv_all[:, sel],
-                "old_log_probs": rollouts["action_log_probs"][:, sel],
-                "w": w_steps,
-            }
+            mb = {**_rollout_minibatch(rollouts, sel), "adv": adv_all[:, sel], "w": w_steps}
             state.opt_pol.zero_grad()
             if isinstance(sel, torch.Tensor) and sel.numel() == 0:
                 # none of this minibatch's envs is on this rank: its share is 0

@@ -31,8 +31,22 @@ float32 parameters, Adam state and losses (``models/unet.py``);
 ``SEP_SLAB_DTYPE`` is the storage of the refit's slabs, ``SEP_REFIT_DTYPE``
 the compute dtype of the refit alone, ``SUB_BANK_DTYPE`` the sub-bank
 slab's storage. ``TPU.REPORT_MFU`` counts the FLOPs of the first cycle
-(``trainer.mfu_info``). Not ported yet, and raising NotImplementedError:
-the JAX package's ``TPU`` knobs that ``refuse_unported_knobs`` lists.
+(``trainer.mfu_info``).
+
+``TPU.FUSED_CYCLE`` and ``TPU.PAIRWISE_FUSION`` make the JAX package run a
+whole cycle, or each collect with its policy update, as one XLA program.
+The port runs the same loops either way (a program split has no eager
+counterpart) and takes over the routing the JAX package ties to them: the
+rollouts store the frames rather than pose indices, the preemptive sync is
+off, the gate never takes the sub-banks (auto falls back to the host path,
+a forced ``RIR_MODE`` sub raises ValueError), ``REPORT_MFU`` is skipped with
+the JAX package's warning, and under ``FUSED_CYCLE`` the lr and clip decay
+is the fused cycle's float32 formula and the refit reads the collects'
+outputs unrounded by ``SEP_SLAB_DTYPE``. ``TPU.COLLECT_UNROLL`` is the JAX
+package's scan unroll of the collect; the port's collect is a Python loop
+that every accepted value runs alike. The host path reads none of the
+three, as the JAX package's. ``refuse_unported_knobs`` refuses the one
+knob the port does not take (``MESH_SHAPE`` above one device).
 """
 
 import dataclasses
@@ -115,7 +129,12 @@ from move2hear_tpu_torch.rl.rollout import (
     insert_sep,
 )
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from move2hear_tpu_torch.utils.misc import DTYPE_KNOBS, linear_decay, tpu_dtype
+from move2hear_tpu_torch.utils.misc import (
+    DTYPE_KNOBS,
+    linear_decay,
+    linear_decay_float32,
+    tpu_dtype,
+)
 from move2hear_tpu_torch.utils.registry import registry
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
 from move2hear_tpu_torch.utils.torch_import import refuse_reference_layout
@@ -125,11 +144,10 @@ logger = logging.getLogger(__name__)
 
 def refuse_unported_knobs(tpu, training: bool = True) -> None:
     """Refuse the JAX package's ``TPU`` knobs that the port would not
-    honour, and dtype knobs of a value no route takes (ValueError). The
-    port's default config lacks the unported knobs, but its reader takes
-    keys it does not know, so without this they would run as if unset.
-    Dtypes and the mesh apply to evaluation too; the rest only to
-    training."""
+    honour, and knob values no route takes (ValueError). The port's default
+    config lacks the unported knobs, but its reader takes keys it does not
+    know, so without this they would run as if unset. Dtypes and the mesh
+    apply to evaluation too; COLLECT_UNROLL only to training."""
     for key in DTYPE_KNOBS:
         tpu_dtype(tpu, key)
     if any(int(d) > 1 for d in tpu.get("MESH_SHAPE", [1])):
@@ -140,17 +158,17 @@ def refuse_unported_knobs(tpu, training: bool = True) -> None:
         )
     if not training:
         return
-    for key in ("FUSED_CYCLE", "PAIRWISE_FUSION"):
-        if bool(tpu.get(key, False)):
-            raise NotImplementedError(
-                f"TPU.{key}=True is not ported yet (ROADMAP Queue 1 item 5b); the "
-                "port runs the collect, the update and the refit as separate loops"
-            )
-    if int(tpu.get("COLLECT_UNROLL", 1)) > 1:
-        raise NotImplementedError(
-            f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL} is not ported yet (ROADMAP Queue 1 "
-            "item 5b); the collect is a Python loop"
-        )
+    # the JAX package hands int(COLLECT_UNROLL) to lax.scan, which takes 0
+    # and any positive count and raises ValueError for a negative one
+    if int(tpu.get("COLLECT_UNROLL", 1)) < 0:
+        raise ValueError(f"TPU.COLLECT_UNROLL={tpu.COLLECT_UNROLL}: the collect's unroll must "
+                         "be 0 or more")
+
+
+def fusion_knob(tpu) -> bool:
+    """TPU.FUSED_CYCLE or TPU.PAIRWISE_FUSION: the JAX package's fused
+    routes, whose routing rules the port's device path follows."""
+    return bool(tpu.get("FUSED_CYCLE", False)) or bool(tpu.get("PAIRWISE_FUSION", False))
 
 
 MFU_METHOD = (
@@ -241,7 +259,8 @@ class PPOTrainer(BaseRLTrainer):
         sub-banks, or to the host env path. RIR_MODE dense, sub or host
         forces that route, and DEVICE_ENV False the host path; auto takes
         dense when its banks fit TPU.MAX_DEVICE_BANK_BYTES, else sub when the
-        sub-bank at one window's capacity fits it, else host."""
+        sub-bank at one window's capacity fits it and no fusion knob is set
+        (``fusion_knob``), else host."""
         cfg = self.config
         forced = str(cfg.TPU.RIR_MODE)
         refuse_unported_knobs(cfg.TPU)
@@ -262,7 +281,8 @@ class PPOTrainer(BaseRLTrainer):
                 cfg.TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS,
                 dtype_bytes=self._sub_dtype().itemsize,
             )
-            route = "dense" if dense <= budget else "sub" if sub <= budget else "host"
+            route = ("dense" if dense <= budget
+                     else "sub" if sub <= budget and not fusion_knob(cfg.TPU) else "host")
             if route != "dense":
                 logger.warning(
                     "the device banks would take %.2f GiB dense and %.2f GiB sub-banked, "
@@ -446,7 +466,11 @@ class PPOTrainer(BaseRLTrainer):
         writes TensorBoard and checkpoints. Under the preemptive sync each
         rollout runs as a prefix of ceil(short_rollout_threshold * T)
         steps, one store check (agreed over the world), then the tail
-        unless the world stops; the refit weighs only the rows filled."""
+        unless the world stops; the refit weighs only the rows filled.
+
+        Under TPU.FUSED_CYCLE or PAIRWISE_FUSION the loop is the same with
+        the JAX package's routing (module docstring): no pose bank, no
+        sync, no sub-banks, no FLOP count."""
         cfg = self.config
         ppo_cfg = self._ppo_config()
         p = cfg.RL.PPO
@@ -454,6 +478,18 @@ class PPOTrainer(BaseRLTrainer):
         t_setup = time.perf_counter()
 
         on_cuda = device.type == "cuda"
+        fused = bool(cfg.TPU.get("FUSED_CYCLE", False))
+        fusion = fusion_knob(cfg.TPU)
+        if rir_mode == "sub" and fusion:
+            # the JAX package's reason, which its fused programs make true
+            raise ValueError(
+                "sub-bank mode refreshes the RIR slab per rollout; TPU.FUSED_CYCLE / "
+                "PAIRWISE_FUSION fuse whole cycles into one program and cannot host the refresh")
+        unroll = int(cfg.TPU.get("COLLECT_UNROLL", 1))
+        if unroll != 1:
+            logger.info("TPU.COLLECT_UNROLL=%d: the JAX package's unroll of the collect's scan "
+                        "changes its compiled program, not its arithmetic; the port's collect "
+                        "is a Python loop, which every unroll runs alike", unroll)
         self._rir_mode = rir_mode
 
         def mark():
@@ -509,6 +545,10 @@ class PPOTrainer(BaseRLTrainer):
             logger.warning("REPORT_MFU: the FLOP count covers a world of one rank only; "
                            "mfu_info stays None")
             report_mfu = False
+        elif report_mfu and fusion:
+            logger.warning("REPORT_MFU: probe supports single-device separate-program runs "
+                           "only; skipping")  # the JAX package's warning
+            report_mfu = False
         flops = dict.fromkeys(("collect", "update", "refit"), 0)
 
         def counted(name, fn, *args, **kwargs):
@@ -524,10 +564,12 @@ class PPOTrainer(BaseRLTrainer):
 
         # pose-indexed rollout observations whenever the collect's
         # per-rollout visual-feature bank is active: the update then runs
-        # the visual conv stack once per epoch over the S*V*4 poses
+        # the visual conv stack once per epoch over the S*V*4 poses; the
+        # fusion knobs store the frames, as the JAX package's fused programs
         frame_bank = dev.rgb_bank if dev.rgb_bank is not None else dev.depth_bank
-        pose_obs = (
-            frame_bank is not None
+        pose_obs = self._pose_obs = (
+            not fusion
+            and frame_bank is not None
             and policy.pol_net.visual_encoder is not None
             and frame_bank.shape[0] * frame_bank.shape[1] * 4 <= n_envs * t_steps
         )
@@ -545,7 +587,7 @@ class PPOTrainer(BaseRLTrainer):
         collect = mk_collect(t_steps)
         # the preemptive sync: a prefix of s0 steps, one store check, the tail
         sync_dev, s0 = None, t_steps
-        if self._sync_possible():
+        if self._sync_possible() and not fusion:
             s0 = max(1, int(np.ceil(p.short_rollout_threshold * t_steps)))
             if s0 < t_steps:
                 sync_dev = self._make_rollout_sync(t_steps)
@@ -555,9 +597,16 @@ class PPOTrainer(BaseRLTrainer):
             policy, ppo_cfg, cycle, with_validity=sync_dev is not None,
             refit_dtype=tpu_dtype(cfg.TPU, "SEP_REFIT_DTYPE"))
         pol_banks = {"rgb": dev.rgb_bank, "depth": dev.depth_bank} if pose_obs else None
+        # the JAX package's fused cycle hands the refit the collects' own
+        # outputs: storage as wide as the parameters (float32, or a float64
+        # copy's) holds them, float32 or bfloat16, exactly
+        slab_dtype = (torch.promote_types(torch.float32, next(policy.parameters()).dtype)
+                      if fused else tpu_dtype(cfg.TPU, "SEP_SLAB_DTYPE"))
+        if fused and slab_dtype != tpu_dtype(cfg.TPU, "SEP_SLAB_DTYPE"):
+            logger.info("TPU.SEP_SLAB_DTYPE is not applied under TPU.FUSED_CYCLE: the refit "
+                        "reads the collects' outputs in their own dtypes")
         sep_buf = RolloutSepIdx.create(t_steps * cycle, n_envs, cfg.NUM_SOUNDS_IN_MIX,
-                                       device=device,
-                                       slab_dtype=tpu_dtype(cfg.TPU, "SEP_SLAB_DTYPE"))
+                                       device=device, slab_dtype=slab_dtype)
         hidden = torch.zeros((n_envs, p.hidden_size), device=device)
         masks = torch.ones((n_envs, 1), device=device)
         prev_mem = torch.zeros((n_envs, 512, 32, 1), device=device)
@@ -606,14 +655,17 @@ class PPOTrainer(BaseRLTrainer):
         self.setup_s = time.perf_counter() - t_setup
         t_start = time.time()
 
+        # the lr and clip decay: the fused cycle's float32 formula under
+        # FUSED_CYCLE, else the host's float64 one
+        decay = linear_decay_float32 if fused else linear_decay
         for cycle_idx in range(num_cycles):
             stats_list, pol_l = [], []
             sep_fill = 0  # rows of sep_buf this cycle's rollouts wrote
             marks = [mark()]  # collect starts, collect ends, update ends, ..., refit ends
             for sub in range(cycle):
                 idx = update_count + sub
-                lr_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
-                clip_scale = linear_decay(idx, cfg.NUM_UPDATES) if p.use_linear_clip_decay else 1.0
+                lr_scale = decay(idx, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
+                clip_scale = decay(idx, cfg.NUM_UPDATES) if p.use_linear_clip_decay else 1.0
                 if sub_bank is not None:
                     slab, table = sub_bank.rollout_inputs()
                     dev = dataclasses.replace(dev, rir_sub_bank=slab, ep_src_row=table)
@@ -653,7 +705,7 @@ class PPOTrainer(BaseRLTrainer):
                     # behind those on the same stream
                     sub_bank.prefetch()
             sep_lrs = [
-                linear_decay(update_count + i, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
+                decay(update_count + i, cfg.NUM_UPDATES) if p.use_linear_lr_decay else 1.0
                 for i in range(cycle)
             ]
             if sync_dev is None:

@@ -4,6 +4,7 @@ import glob
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 # the `TPU` dtype knobs and the values each takes; SEP_REFIT_DTYPE's ""
@@ -30,6 +31,16 @@ def tpu_dtype(tpu, key: str) -> Optional[torch.dtype]:
 def linear_decay(epoch: int, total_num_updates: int) -> float:
     """LR/clip multiplier decaying linearly to 0 (utils.py:53-63)."""
     return 1.0 - (epoch / float(total_num_updates))
+
+
+def linear_decay_float32(epoch: int, total_num_updates: int) -> float:
+    """``linear_decay`` as the JAX package's fused cycle computes it on the
+    device, in float32 from the update index
+    (``1.0 - idx.astype(float32) / num_updates_total``, with at least one
+    update): one float32 ulp from ``float32(linear_decay(...))`` at some
+    indices (4, 5, 7, 8, 10 and 11 of 12)."""
+    total = np.float32(max(1, int(total_num_updates)))
+    return float(np.float32(1.0) - np.float32(epoch) / total)
 
 
 def poll_checkpoint_folder(

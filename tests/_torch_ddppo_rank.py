@@ -16,7 +16,11 @@ Test hooks, from the environment:
   M2H_TEST_PASSIVE_POINTS n: the pretrain's synthetic sources hold n train
     and n / 2 validation datapoints;
   M2H_TEST_FLOAT64 1: the pretrain's weights (and so its U-Nets) are
-    float64, on the float32 render.
+    float64, on the float32 render; RL training's policy computes in
+    float64 (its weights, Adam state and refit slabs float64) on the
+    float32 render, its separator masks rounded to float32 where
+    masked_mix_slice16 reads them (the plain version does so on the CPU,
+    the CUDA kernel takes a float32 mask).
 
 Imported by the tests: ``launch``, ``launch_world`` and ``finish`` start
 and wait for such processes (each wait bounded, a hung rank killed),
@@ -147,8 +151,28 @@ def _install_hooks():
         }
 
     if os.environ.get("M2H_TEST_FLOAT64"):
+        import torch
+
+        import move2hear_tpu_torch.models.audio_cnn as audio_cnn
+        import move2hear_tpu_torch.models.unet as unet
+
         new_policy = pt.PassiveTrainer.new_policy
         pt.PassiveTrainer.new_policy = lambda self: new_policy(self).double()
+        tpu_dtype = rt.tpu_dtype
+
+        def float64_dtype(tpu, key):
+            dt = tpu_dtype(tpu, key)
+            return torch.float64 if key in ("COMPUTE_DTYPE", "SEP_SLAB_DTYPE") else dt
+
+        rt.tpu_dtype = float64_dtype
+        new_rl_policy = rt.PPOTrainer._new_policy
+        rt.PPOTrainer._new_policy = lambda self: new_rl_policy(self).double()
+        kernel = audio_cnn.masked_mix_slice16
+
+        def float32_mask(mix, mask):
+            return kernel(mix, mask.to(mix.dtype))
+
+        audio_cnn.masked_mix_slice16 = unet.masked_mix_slice16 = float32_mask
 
     sig = os.environ.get("M2H_TEST_SIGNAL", "")
     if sig:

@@ -13,7 +13,8 @@ excess precision (tests/test_torch_bf16_models.py says why):
   within 1e-5);
 - the host evaluator, deterministic actions, 2 near-target episodes: equal
   actions, and its per-step STFT-L2s under the discriminator of
-  tests/test_torch_bf16_models.py, JAX's float32 evaluation the yardstick.
+  tests/test_torch_bf16_models.py, JAX's float32 evaluation the yardstick
+  (in test_torch_bf16_host_eval.py).
 """
 
 import shutil
@@ -33,8 +34,10 @@ from move2hear_tpu.ops import pallas_kernels as jpk
 from move2hear_tpu_torch.config import get_config
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.utils.params import from_jax
-from test_torch_bf16_models import discriminate
-from test_torch_host_eval import HID, NEAR, _run_both
+from _torch_quick import skip_setup_costs
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N, T, CYCLE = 2, 3, 2
 LOSS_REL, LOSS_ABS = 1e-3, 1e-4
@@ -67,6 +70,7 @@ def test_bf16_host_loop_matches_the_jax_host_loop(tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpk, "_PALLAS_STATUS", {})
         mp.setenv("INTERRUPTED_STATE_DIR", str(tmp_path / "interrupted"))
+        skip_setup_costs(mp)
         create, j_step = jtrainer.create_agent_state, j_environment.AAViSSEnv.step
 
         def capture_init(cfg, variables):
@@ -94,6 +98,7 @@ def test_bf16_host_loop_matches_the_jax_host_loop(tmp_path):
     draws = iter(range(10**6))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("INTERRUPTED_STATE_DIR", str(tmp_path / "interrupted"))
+        skip_setup_costs(mp)
         new_policy = ttrainer.PPOTrainer._new_policy
 
         def jax_weights(self):
@@ -140,26 +145,3 @@ def _recording_jit(jit, fn, losses, **kwargs):
         losses[key].append(out)
         return state, out
     return run
-
-
-def test_bf16_host_evaluator_matches_the_jax_host_evaluator(tmp_path):
-    opts = ["RL.PPO.hidden_size", str(HID), "RL.PPO.deterministic_eval", "True",
-            "EVAL_EPISODE_COUNT", "2", "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "3",
-            "TPU.MAX_RIR_LENGTH", "400"]
-    runs = {}
-    with pytest.MonkeyPatch.context() as mp:
-        _no_excess_precision(mp)
-        for dtype in ("bfloat16", "float32"):
-            runs[dtype] = _run_both(
-                tmp_path / dtype, NEAR, opts + ["TPU.COMPUTE_DTYPE", dtype],
-                j_build_micro_scene(rows=3, cols=3, num_episodes=4, rir_length=400),
-                build_micro_scene(rows=3, cols=3, num_episodes=4, rir_length=400), False)
-    _, _, j_dump, t_dump, j_actions, t_actions, _ = runs["bfloat16"]
-    f32_dump, f32_actions = runs["float32"][2], runs["float32"][4]
-    assert t_actions == j_actions == f32_actions and len(t_actions) == 2
-    for m in ("mono_l2", "mem_l2", "bin_l2"):
-        keys = sorted(j_dump)
-        discriminate(torch.tensor(np.concatenate([t_dump[k][m] for k in keys])),
-                     np.concatenate([j_dump[k][m] for k in keys]),
-                     np.concatenate([f32_dump[k][m] for k in keys]), f"host eval {m}")
-    shutil.rmtree(tmp_path)

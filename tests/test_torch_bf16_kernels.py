@@ -19,6 +19,9 @@ import torch
 
 from move2hear_tpu.ops import pallas_kernels as jpk
 from move2hear_tpu_torch.ops import kernels
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL = ATOL = 1e-6
 

@@ -34,6 +34,9 @@ from _torch_ddppo_rank import finish, launch_world, train_argv
 from test_torch_sub_bank import R, _jax_bank, _port_bank, _two_scene
 
 import jax.numpy as jnp
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID = 32
 

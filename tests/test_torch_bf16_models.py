@@ -19,7 +19,8 @@ JAX runs with full-precision float32 matmuls and without XLA's excess
 precision (``xla_allow_excess_precision`` False), so each bfloat16 result
 is rounded where flax's ``dtype=`` says; by default XLA:CPU drops
 bfloat16 round trips between fused operations, a precision no flax module
-asks for.
+asks for. The U-Nets and the passive policy run in test_torch_bf16_unets.py, the
+policy's entry points in test_torch_bf16_policy.py, on this module's helpers.
 """
 
 import jax
@@ -33,7 +34,6 @@ from move2hear_tpu.models import distributions as j_dist
 from move2hear_tpu.models import memory as j_memory
 from move2hear_tpu.models import policy as j_policy
 from move2hear_tpu.models import rnn as j_rnn
-from move2hear_tpu.models import unet as j_unet
 from move2hear_tpu.models import visual_cnn as j_visual
 from move2hear_tpu.ops import pallas_kernels as jpk
 from move2hear_tpu_torch.models import (
@@ -42,13 +42,13 @@ from move2hear_tpu_torch.models import (
     CategoricalNet,
     CriticHead,
     GRUStateEncoder,
-    Move2HearPassiveWoMemoryPolicy,
     Move2HearPolicy,
-    PassiveSepDecoder,
-    PassiveSepEncoder,
     VisualCNN,
 )
 from move2hear_tpu_torch.utils import params as P
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B = 4
 HID = 32
@@ -140,42 +140,6 @@ def _spec_inputs(seed, b=B):
 
 def _nchw(x):
     return torch.from_numpy(np.transpose(_np(x), (0, 3, 1, 2)).copy())
-
-
-@pytest.mark.parametrize("bin2mono", [False, True], ids=["binSep", "bin2mono"])
-def test_unet_in_bfloat16(bin2mono):
-    """Encoder (convs in bf16, BatchNorm in f32) then decoder on the JAX
-    bfloat16 encoder's outputs, both U-Net variants; the bin2mono encoder
-    takes a bfloat16 mask, as the separator chain hands it on."""
-    mix, masks, tc = _spec_inputs(10 + bin2mono)
-    jm = jnp.asarray(masks).astype(jnp.bfloat16)
-    kw = {"pred_bin_sep_masks": jm} if bin2mono else {"target_class": jnp.asarray(tc)}
-    ep, es = _init(j_unet.PassiveSepEncoder(convert_bin2mono=bin2mono), 1, jnp.asarray(mix), **kw)
-    (jb_bott, jb_skips), (jf_bott, jf_skips) = _both(
-        lambda dt: j_unet.PassiveSepEncoder(convert_bin2mono=bin2mono, dtype=dt),
-        lambda m: m.apply(_variables(ep, es), jnp.asarray(mix), **kw))
-    enc = PassiveSepEncoder(bin2mono, dtype=BF16)
-    enc.load_state_dict(P.unet_encoder(ep, es))
-    t_kw = ({"pred_bin_sep_masks": torch.from_numpy(masks).to(BF16)} if bin2mono
-            else {"target_class": torch.from_numpy(tc)})
-    with torch.no_grad():
-        bott, skips = enc.eval()(torch.from_numpy(mix), **t_kw)
-    assert bott.dtype == torch.float32 and all(s.dtype == torch.float32 for s in skips)
-    discriminate(bott, jb_bott, jf_bott, "bottleneck")
-    for i, (s, b, f) in enumerate(zip(skips, jb_skips, jf_skips)):
-        discriminate(s.permute(0, 2, 3, 1), b, f, f"skip {i}")
-
-    dp, ds = _init(j_unet.PassiveSepDecoder(convert_bin2mono=bin2mono), 2, jb_bott, jb_skips)
-    jb_out, jf_out = _both(
-        lambda dt: j_unet.PassiveSepDecoder(convert_bin2mono=bin2mono, dtype=dt),
-        lambda m: m.apply(_variables(dp, ds), jb_bott, jb_skips))
-    assert jb_out.dtype == jnp.bfloat16
-    dec = PassiveSepDecoder(bin2mono, dtype=BF16)
-    dec.load_state_dict(P.unet_decoder(dp, ds))
-    with torch.no_grad():
-        out = dec.eval()(torch.from_numpy(_np(jb_bott)), [_nchw(s) for s in jb_skips])
-    assert out.dtype == BF16
-    discriminate(out, jb_out, jf_out, "decoder")
 
 
 @pytest.mark.parametrize("use_ddppo", [True, False], ids=["ddppo", "batchnorm"])
@@ -303,118 +267,3 @@ def _full_policy(seed, inp):
     t = Move2HearPolicy(3, HID, extra_depth=True, dtype=BF16)
     t.load_state_dict(P.from_jax(p, s))
     return obs, _variables(p, s), t.eval()
-
-
-def test_policy_act_in_bfloat16():
-    """The separator chain and deterministic ``act`` of the full policy.
-    Each stage takes the JAX bfloat16 chain's inputs (JAX float32 their
-    float32 values), so the discriminator weighs each stage's own rounding,
-    not the last ulp of the stage before it."""
-    inp = _policy_inputs(60)
-    obs, v, t = _full_policy(7, inp)
-    M = j_policy.Move2HearPolicy
-
-    def chain(dt, feed=None):
-        pol = M(num_actions=3, hidden_size=HID, extra_depth=True, dtype=dt)
-
-        def run():
-            pm = pol.apply(v, obs, method=M.get_binSepMasks)
-            pm_in = pm if feed is None else feed[0]
-            mono = pol.apply(v, pm_in, obs["mixed_bin_audio_mag"], method=M.convert_bin2mono)
-            mono_in = mono if feed is None else feed[1]
-            mem = pol.apply(v, mono_in, jnp.asarray(inp["prev"]), method=M.get_monoFromMem)
-            mem_in = mem if feed is None else feed[2]
-            act = pol.apply(v, obs, jnp.asarray(inp["hidden"]), jnp.asarray(inp["masks"]),
-                            pm_in, mono_in, mem_in, None, True, method=M.act)
-            return pm, mono, mem, act
-        return jit(run)()
-
-    jb = chain(jnp.bfloat16)
-    jf = chain(jnp.float32, feed=tuple(x.astype(jnp.float32) for x in jb[:3]))
-    t_obs = {k: torch.from_numpy(inp[k]) for k in obs}
-    pm_b, mono_b, mem_b = (torch.from_numpy(_np(x)).to(BF16) for x in jb[:3])
-    with torch.no_grad():
-        pm = t.get_binSepMasks(t_obs)
-        mono = t.convert_bin2mono(pm_b, t_obs["mixed_bin_audio_mag"])
-        mem = t.get_monoFromMem(mono_b, torch.from_numpy(inp["prev"]))
-        act = t.act(t_obs, torch.from_numpy(inp["hidden"]), torch.from_numpy(inp["masks"]),
-                    pm_b, mono_b, mem_b, deterministic=True)
-    assert pm.dtype == mono.dtype == mem.dtype == BF16
-    for i, (name, ours) in enumerate((("binSep masks", pm), ("bin2mono", mono),
-                                      ("acoustic mem", mem))):
-        discriminate(ours, jb[i], jf[i], name)
-    for name in ("value", "hidden", "probs"):
-        assert getattr(act, name).dtype == torch.float32
-        discriminate(getattr(act, name), getattr(jb[3], name), getattr(jf[3], name), name)
-    np.testing.assert_array_equal(act.action.numpy(), np.asarray(jb[3].action))
-
-
-def test_policy_evaluate_actions_in_bfloat16():
-    """The PPO update's sequence evaluation over (T, N) stored steps:
-    bfloat16 stored separator outputs, float32 stored memory (as the
-    rollout stores them)."""
-    t_len, n = 3, 2
-    inp = _policy_inputs(80)
-    _, v, t = _full_policy(9, inp)
-    rng = np.random.default_rng(81)
-    seq = {
-        "rgb": rng.integers(0, 256, (t_len, n, 128, 128, 3)).astype(np.uint8),
-        "depth": rng.uniform(0, 1, (t_len, n, 128, 128, 1)).astype(np.float32),
-        "mixed_bin_audio_mag": np.abs(rng.standard_normal((t_len, n, 512, 32, 2))).astype(
-            np.float32),
-        "target_class": rng.integers(0, 10, (t_len, n, 1)).astype(np.int32),
-    }
-    pm = rng.uniform(-0.2, 1.2, (t_len, n, 512, 32, 2)).astype(np.float32)
-    mono = np.abs(rng.standard_normal((t_len, n, 512, 32, 1))).astype(np.float32)
-    mem = rng.standard_normal((t_len, n, 512, 32, 1)).astype(np.float32)
-    hidden = rng.standard_normal((n, HID)).astype(np.float32)
-    masks = (rng.uniform(size=(t_len, n, 1)) > 0.3).astype(np.float32)
-    action = rng.integers(0, 3, (t_len, n, 1)).astype(np.int32)
-    pm_b = jnp.asarray(pm).astype(jnp.bfloat16)
-    mono_b = jnp.asarray(mono).astype(jnp.bfloat16)
-    M = j_policy.Move2HearPolicy
-
-    def run(dt):
-        pol = M(num_actions=3, hidden_size=HID, extra_depth=True, dtype=dt)
-        return jit(lambda: pol.apply(
-            v, {k: jnp.asarray(a) for k, a in seq.items()}, jnp.asarray(hidden),
-            jnp.asarray(masks), jnp.asarray(action), pm_b, mono_b, jnp.asarray(mem),
-            method=M.evaluate_actions))()
-
-    jb, jf = run(jnp.bfloat16), run(jnp.float32)
-    with torch.no_grad():
-        out = t.evaluate_actions(
-            {k: torch.from_numpy(a) for k, a in seq.items()}, torch.from_numpy(hidden),
-            torch.from_numpy(masks), torch.from_numpy(action),
-            torch.from_numpy(_np(pm_b)).to(BF16), torch.from_numpy(_np(mono_b)).to(BF16),
-            torch.from_numpy(mem))
-    for i, name in enumerate(("values", "log_probs", "entropy", "hidden")):
-        assert out[i].dtype == torch.float32
-        discriminate(out[i].reshape(-1), jnp.reshape(jb[i], (-1,)), jnp.reshape(jf[i], (-1,)),
-                     name)
-
-
-def test_passive_policy_in_bfloat16():
-    """The pretrain's passive policy on its running statistics: both
-    outputs in bfloat16; the bin2mono pair takes the JAX bfloat16 masks, as
-    in test_policy_act_in_bfloat16."""
-    mix, _, tc = _spec_inputs(90)
-    obs = {"mixed_bin_audio_mag": jnp.asarray(mix), "target_class": jnp.asarray(tc)}
-    J = j_policy.Move2HearPassiveWoMemoryPolicy
-    p, s = _init(J(), 11, obs)
-    jb_m, jf_m = _both(lambda dt: J(dtype=dt), lambda m: m.apply(
-        _variables(p, s), obs, method=J.get_binSepMasks))
-    jb_mono, jf_mono = _both(lambda dt: J(dtype=dt), lambda m: m.apply(
-        _variables(p, s), jb_m.astype(m.dtype), obs["mixed_bin_audio_mag"],
-        method=J.convert_bin2mono))
-    t = Move2HearPassiveWoMemoryPolicy(dtype=BF16)
-    t.load_state_dict(P.from_jax(p, s))
-    t_obs = {"mixed_bin_audio_mag": torch.from_numpy(mix), "target_class": torch.from_numpy(tc)}
-    with torch.no_grad():
-        masks = t.eval().get_binSepMasks(t_obs)
-        mono = t.convert_bin2mono(torch.from_numpy(_np(jb_m)).to(BF16),
-                                  t_obs["mixed_bin_audio_mag"])
-        both = t(t_obs)
-    assert masks.dtype == mono.dtype == BF16 and torch.equal(both[0], masks)
-    discriminate(masks, jb_m, jf_m, "masks")
-    discriminate(mono, jb_mono, jf_mono, "mono")

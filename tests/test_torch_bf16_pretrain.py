@@ -29,6 +29,9 @@ from move2hear_tpu_torch.pretrain import trainer as tpt
 from move2hear_tpu_torch.pretrain.dataset import SyntheticPassiveSource
 from move2hear_tpu_torch.utils.params import from_jax
 from test_torch_pretrain import B, _configs, _flax_weights, small_sources
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 LOSS_REL = 2e-3
 

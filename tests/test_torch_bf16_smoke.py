@@ -2,7 +2,7 @@
 bench-shape, 8l bf16-sub, 8m bf16-pretrain, bf16-parity and the bfloat16
 host eval), small and on the CPU (both devices the CPU, the plain kernels,
 so no launch counts), so that their own logic is tested before a card runs
-them."""
+them; 8m's pretrain and bf16-parity in test_torch_bf16_pretrain_smoke.py."""
 
 import os
 import shutil
@@ -12,6 +12,9 @@ import torch
 
 import chip_smoke
 from move2hear_tpu_torch.ops import kernels
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID = 64
 SMALL = ["NUM_PROCESSES", "2", "RL.PPO.hidden_size", str(HID), "RL.PPO.num_steps", "3",
@@ -52,16 +55,3 @@ def test_bf16_train_bench_and_sub_phases_run_on_the_cpu(tmp_path, capsys, zero):
     assert "the gather is bitwise the dense bank rounded to bfloat16" in out
     assert "bf16-sub: losses within" in out and "[bf16-host-eval] 2 episodes" in out
     shutil.rmtree(run_dir)
-
-
-def test_bf16_pretrain_and_parity_phases_run_on_the_cpu(tmp_path, capsys, zero):
-    stats = {}
-    counts, folder = chip_smoke.pretrain_phase(
-        torch, kernels, "cpu", str(tmp_path / "pre"), device="cpu",
-        opts=["Pretrain.Passive.BATCH_SIZE", "4", "TPU.COMPUTE_DTYPE", "bfloat16"],
-        launches=zero, label="bf16-pretrain", epochs=2, stats=stats)
-    assert counts == zero and stats["warm_rate"] > 0
-    chip_smoke.bf16_parity_phase(torch, devices=("cpu", "cpu"), b=2, hid=HID)
-    out = capsys.readouterr().out
-    assert "[bf16-pretrain] epoch 1 (warm)" in out and "[bf16-parity]" in out
-    shutil.rmtree(tmp_path)

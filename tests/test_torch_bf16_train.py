@@ -40,6 +40,10 @@ from move2hear_tpu_torch.config import get_config
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.utils.params import from_jax
 from test_torch_bf16_models import discriminate
+from _torch_quick import skip_setup_costs
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, CYCLE, EPOCHS = 32, 2, 3, 2, 1
 LOSS_REL, LOSS_ABS = 1e-3, 1e-5
@@ -71,6 +75,7 @@ def runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpk, "_PALLAS_STATUS", {})
         mp.setenv("INTERRUPTED_STATE_DIR", str(tmp / "interrupted"))
+        skip_setup_costs(mp)
         create = jtrainer.create_agent_state
 
         def capture_init(cfg, variables):
@@ -125,6 +130,7 @@ def runs(tmp_path_factory):
     t_bufs, handed = [], []
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("INTERRUPTED_STATE_DIR", str(tmp / "interrupted"))
+        skip_setup_costs(mp)
         new_policy, t_make_collect = ttrainer.PPOTrainer._new_policy, ttrainer.make_collect
         t_make_sep = ttrainer.make_update_sep_from_slabs
 

@@ -10,6 +10,9 @@ import shutil
 import torch
 
 from _torch_ddppo_rank import assert_world_equals_single, finish, launch, launch_world, train_argv
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HOST = ["TPU.RIR_MODE", "host", "USE_SYNC_VECENV", "True"]
 T, CYCLE, THRESHOLD = 4, 2, 0.5

@@ -28,6 +28,10 @@ from move2hear_tpu_torch.config import get_config
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.parallel.ddppo import RolloutSyncState
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_quick import skip_setup_costs
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 T, CYCLE, THRESHOLD = 4, 2, 0.5
 S0 = math.ceil(THRESHOLD * T)
@@ -59,6 +63,7 @@ OPTS = ["NUM_PROCESSES", "2", "NUM_UPDATES", str(2 * CYCLE), "CHECKPOINT_INTERVA
 def test_mocked_world_truncation_matches_the_jax_trainer(tmp_path, monkeypatch):
     monkeypatch.setattr(jpk, "_PALLAS_STATUS", {})
     monkeypatch.setenv("INTERRUPTED_STATE_DIR", str(tmp_path / "interrupted"))
+    skip_setup_costs(monkeypatch)
     # the JAX run: its initial variables and the actions of every collect
     captured, actions = {}, []
     create = jtrainer.create_agent_state

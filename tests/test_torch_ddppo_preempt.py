@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from _torch_ddppo_rank import finish, launch, launch_world, train_argv
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 @pytest.mark.parametrize("signal_name,ranks", [("USR2", 2), ("USR1", 1)])

@@ -18,6 +18,9 @@ import shutil
 import torch
 
 from _torch_ddppo_rank import assert_world_equals_single, finish, launch, launch_world, train_argv
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 EXP = "configs/pretrain_passive.yaml"
 ENV = {"M2H_TEST_PASSIVE_POINTS": "32", "M2H_TEST_FLOAT64": "1", "M2H_TEST_THREADS": "2"}

@@ -28,6 +28,9 @@ from move2hear_tpu_torch.models.distributions import Categorical
 from move2hear_tpu_torch.parallel import ddppo
 from move2hear_tpu_torch.rl import device_rollout as tdr
 from move2hear_tpu_torch.rl import ppo as tppo
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 T, N = 6, 4
 

@@ -20,6 +20,9 @@ from move2hear_tpu.rl.gae import compute_returns as j_compute_returns
 from move2hear_tpu_torch.rl import ppo as tppo
 from move2hear_tpu_torch.rl.gae import compute_returns
 from test_torch_train import _assert_state_close, _f64, _port_policy, _t, _weights
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, A = 64, 2, 4, 3
 T_VALID = 2

@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from _torch_ddppo_rank import assert_world_equals_single, finish, launch, launch_world, train_argv
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _load(path):

@@ -31,6 +31,9 @@ from move2hear_tpu_torch.ops import kernels
 from move2hear_tpu_torch.rl.trainer import PPOTrainer
 from move2hear_tpu_torch.utils.checkpoint import save_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 EXP = "configs/test/nearTarget.yaml"
 HID = 32
@@ -74,7 +77,8 @@ def slice_run(tmp_path_factory):
             "mixed_bin_audio_mag": jnp.zeros((1, 512, 32, 2)),
             "target_class": jnp.zeros((1, 1), jnp.int32),
         }
-        v = policy.init(jax.random.PRNGKey(0), obs, jnp.zeros((1, HID)), jnp.ones((1, 1)))
+        v = jax.jit(policy.init)(jax.random.PRNGKey(0), obs, jnp.zeros((1, HID)),
+                                 jnp.ones((1, 1)))
         rng = np.random.default_rng(0)
         params, stats = _perturbed(v["params"], rng), _perturbed(v["batch_stats"], rng)
         j_ckpt = str(tmp / "jax" / "ckpt.0.pth")

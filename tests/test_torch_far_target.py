@@ -49,6 +49,9 @@ from move2hear_tpu_torch.rl.trainer import PPOTrainer
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
 from move2hear_tpu_torch.utils.tb import TensorboardWriter
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, MAX_STEPS, GT_NORM = 32, 4, 6, 4, 1.2
 CODES = (1, 2, 3)  # MOVE_FORWARD, TURN_LEFT, TURN_RIGHT

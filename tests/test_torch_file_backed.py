@@ -32,6 +32,9 @@ from move2hear_tpu_torch.env.frame_cache import FileFrameCache, SyntheticFrameCa
 from move2hear_tpu_torch.env.layout import write_soundspaces_layout
 from move2hear_tpu_torch.env.scene import GraphScene, load_graph_pickle, write_graph_pickle
 from move2hear_tpu_torch.pretrain.dataset import FilePassiveSource
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 EXP = "configs/test/nearTarget.yaml"
 SPLITS = {"test_nearTarget": True, "test_farTarget": False}

@@ -24,6 +24,9 @@ from move2hear_tpu_torch.env.layout import write_soundspaces_layout
 from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.env.sim import AAViSSSim, Action
 from move2hear_tpu_torch.env.vector_env import ProcessVectorEnv, SyncVectorEnv, construct_envs
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # PAUSE=0, MOVE_FORWARD=1, TURN_LEFT=2, TURN_RIGHT=3
 ACTIONS = [1, 1, 2, 1, 3, 3, 1, 0, 1, 2, 2, 1, 1, 3, 1, 1, 0, 2, 1, 1, 3, 1, 2, 1]

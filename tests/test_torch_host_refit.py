@@ -26,6 +26,9 @@ from move2hear_tpu_torch.models import Move2HearPolicy
 from move2hear_tpu_torch.ops.frontend import RenderedAudio
 from move2hear_tpu_torch.rl import ppo as tppo
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, S, R = 32, 2, 3, 2, 400
 REL_F64 = 1e-9  # losses, float64 port against float64 JAX
@@ -74,7 +77,8 @@ def test_update_sep_matches_float64_jax(use_ddppo, monkeypatch):
         j_policy = JPolicy(num_actions=3, hidden_size=HID, extra_depth=True, use_ddppo=use_ddppo)
         obs = {"rgb": jnp.zeros((1, 128, 128, 3)), "mixed_bin_audio_mag": jnp.zeros((1, 512, 32, 2)),
                "target_class": jnp.zeros((1, 1), jnp.int32)}
-        v = j_policy.init(jax.random.PRNGKey(3), obs, jnp.zeros((1, HID)), jnp.ones((1, 1)))
+        v = jax.jit(j_policy.init)(jax.random.PRNGKey(3), obs, jnp.zeros((1, HID)),
+                                   jnp.ones((1, 1)))
         prng = np.random.default_rng(3)
         params, stats = _perturbed(v["params"], prng), _perturbed(v.get("batch_stats", {}), prng)
         flat = lambda a: a[:-1].reshape((rows * N,) + a.shape[2:])  # noqa: E731

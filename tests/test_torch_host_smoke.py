@@ -13,6 +13,9 @@ import torch
 import chip_smoke
 from move2hear_tpu_torch.eval.switch import merge_switch_policy_checkpoint
 from move2hear_tpu_torch.ops import kernels
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 FIXTURE = dict(num_scenes=2, rows=3, cols=4, episodes_per_scene=2, rir_length=400,
                splits={"train_nearTarget": True, "test_nearTarget": True, "test_farTarget": False})

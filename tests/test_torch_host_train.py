@@ -29,6 +29,9 @@ from move2hear_tpu_torch.env.micro_scene import build_micro_scene
 from move2hear_tpu_torch.rl import rollout as tro
 from move2hear_tpu_torch.rl.trainer import PPOTrainer
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, S, R = 32, 2, 3, 2, 400
 SPEC = (16, 4)  # a small spectrogram for the buffer tests

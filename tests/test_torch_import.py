@@ -13,6 +13,7 @@ torch_import.py``) makes of the same dict, mapped through
 wherever the port loads one."""
 
 import os
+import shutil
 import subprocess
 import sys
 import types
@@ -30,6 +31,9 @@ from move2hear_tpu_torch.rl.ppo import PASSIVE_KEYS, load_pretrained_passive_sep
 from move2hear_tpu_torch.utils import torch_import as ti
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
 from torch_oracle_synth import synth_state_dict  # noqa: E402
@@ -235,6 +239,7 @@ def test_cli_converts_a_reference_file_that_the_evaluator_then_runs(tmp_path, mo
                "TPU.DEVICE_EVAL_MIN_EPISODES", "2", "TPU.MAX_RIR_LENGTH", "400"])
     assert ev.last_eval[1]["episodes"] == 2
     assert np.isfinite(ev.last_eval[0]["mono_l2_last"]["mean"])
+    shutil.rmtree(tmp_path)  # the reference and converted checkpoints
 
 
 def test_an_unconverted_reference_dict_is_refused_naming_the_script(tmp_path):

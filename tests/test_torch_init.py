@@ -24,6 +24,9 @@ from move2hear_tpu.models import Move2HearPolicy as JPolicy
 from move2hear_tpu.models.policy import Move2HearPassiveWoMemoryPolicy as JPassive
 from move2hear_tpu_torch.models import Move2HearPassiveWoMemoryPolicy, Move2HearPolicy
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID = 512
 ORTHOGONAL = {

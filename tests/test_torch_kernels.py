@@ -31,6 +31,9 @@ from move2hear_tpu_torch.ops.convolve import fast_circular_len, fftconvolve_same
 from move2hear_tpu_torch.ops.frontend import render_binaural_mixture, render_binaural_mixture_pre
 from move2hear_tpu_torch.ops.spec import quantize_int16, slice16, slice16_nchw
 from move2hear_tpu_torch.utils.config_tree import load_yaml
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 # move2hear_tpu.ops re-exports a function named stft over its module
 j_stft = importlib.import_module("move2hear_tpu.ops.stft")

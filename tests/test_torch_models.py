@@ -31,6 +31,9 @@ from move2hear_tpu_torch.models import (
     VisualCNN,
 )
 from move2hear_tpu_torch.utils import params as P
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
 from torch_oracle_synth import synth_state_dict  # noqa: E402

@@ -18,6 +18,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
 from torch_oracle_synth import synth_state_dict  # noqa: E402

@@ -34,6 +34,9 @@ from move2hear_tpu_torch.pretrain import trainer as tpt
 from move2hear_tpu_torch.pretrain.dataset import SyntheticPassiveSource
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 EXP = "configs/pretrain_passive.yaml"
 B = 4

@@ -12,6 +12,9 @@ import chip_smoke
 from move2hear_tpu_torch.ops import kernels
 from move2hear_tpu_torch.pretrain import trainer as tpt
 from move2hear_tpu_torch.pretrain.dataset import SyntheticPassiveSource
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 B = 4
 

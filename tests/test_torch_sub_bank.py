@@ -14,6 +14,7 @@ rounding flips), per-env values 1e-4 relative."""
 
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,9 @@ from move2hear_tpu_torch.rl import ppo as tppo
 from move2hear_tpu_torch.rl.trainer import PPOTrainer
 from move2hear_tpu_torch.utils.checkpoint import load_checkpoint
 from move2hear_tpu_torch.utils.params import from_jax
+from _torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 HID, N, T, MAX_STEPS, GT_NORM, R = 64, 2, 3, 3, 1.2, 300
 CODES = (1, 2, 3)  # MOVE_FORWARD, TURN_LEFT, TURN_RIGHT
@@ -447,6 +451,7 @@ def test_sub_mode_trains_to_the_dense_modes_parameters_bitwise(tmp_path):
     assert 0 < sub.rows_uploaded == sub.rows_assembled <= sub.capacity
     for k, v in params["dense"].items():
         assert torch.equal(v, params["sub"][k]), k
+    shutil.rmtree(tmp_path)  # the checkpoints, 0.2-0.4 GB each
 
 
 def test_train_picks_sub_mode_at_scale(tmp_path):
@@ -477,3 +482,4 @@ def test_train_picks_sub_mode_at_scale(tmp_path):
         tsb.sub_bank_capacity(2, 2, 3, 4, keys), keys)
     for pol, sep in trainer.loss_log:
         assert np.isfinite(pol).all() and np.isfinite(sep).all()
+    shutil.rmtree(tmp_path)  # the checkpoint, 0.2-0.4 GB
