@@ -7,7 +7,9 @@ Phases, each printing its own line(s) with its seconds:
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: the CUDA sources of move2hear_tpu_torch/csrc/ (the three
      kernels and the empty kernel of the launch floor; nvcc, in parallel),
-     with ptxas registers and spills;
+     with ptxas registers and spills; then the C++ graph walker
+     (move2hear_tpu_torch/native/m2h_native.cc, host C++, not a kernel) by
+     the host compiler, its command, version and seconds;
   3. kernels: each against its plain PyTorch version on the card at the
      eval path's shapes and at edge shapes (small and ragged sizes, a view
      with a storage offset; overlap_add bitwise; the masked_mix_slice16
@@ -71,7 +73,8 @@ Phases, each printing its own line(s) with its seconds:
      mode gives bitwise equal mixture magnitudes, the episode -> slot table
      keeps the slab gather bitwise equal to the dense one through 5 windows
      of the trainer's micro-scene, and one training cycle's parameters agree
-     within TRAIN_TOL (losses) and TRAIN_DP_TOL;
+     within TRAIN_TOL (losses) and TRAIN_DP_TOL; the scale-train run's
+     build_device_scene seconds, its 8 scenes served by the C++ walker;
  8e. host-fixture: the reference's on-disk layout written into the run
      directory (env/layout.py): 14 grid scenes of V = 12 (one per env),
      graph.pkl naming networkx's Graph (written without networkx), 8,064
@@ -95,7 +98,9 @@ Phases, each printing its own line(s) with its seconds:
  8h. host-parity: TF32 off, deterministic actions: the host evaluator
      against the device evaluator on the 16 episodes of two fixture scenes,
      per episode equal actions, per-step STFT-L2 within HOST_PARITY_L2_TOL
-     and SI-SDR within HOST_PARITY_SI_TOL above -40 dB;
+     and SI-SDR within HOST_PARITY_SI_TOL above -40 dB; 8f-8h each print
+     that the C++ walker served every scene from_files loaded (8f's forked
+     workers inherit it);
   8i. ddppo: 2 ranks of ``--run-type train`` (configs/train/nearTarget.yaml,
      7 envs each, phase 8's cycle, gloo) as subprocesses on the one card,
      2 cycles from phase 6's separators: each rank's set-up, warm
@@ -144,6 +149,11 @@ Phases, each printing its own line(s) with its seconds:
      over the pose bank, within FUSION_FORWARD_TOL; fusion-bench: phase
      8k's run with TPU.FUSED_CYCLE (mfu_info left None), its warm rate and
      peak memory beside phase 8k's;
+ 8o. graph-walker: graphs only (points.txt + graph.pkl) of 3 grid scenes of
+     V = 1,024 written by env/layout.py; from_files, the far-target episode
+     checks and build_device_scene on the C++ walker against the Python
+     path (host seconds of each): the device tables, the episodes and
+     forward_neighbor at every node and 8 orientations equal;
  9. train-parity: one PPO update and one separator refit on one injected
      full-width rollout (numpy seed) on the card (TF32 off), against the
      same on the CPU in float64: losses within 1e-4 relative, and every
@@ -166,10 +176,12 @@ Any failure exits non-zero before the last line. Without a GPU, or without
 the package beside this file, it fails at once.
 """
 
+import contextlib
 import functools
 import json
 import math
 import os
+import shlex
 import shutil
 import signal
 import subprocess
@@ -241,6 +253,11 @@ HOST_EVAL_LAUNCHES = {"masked_mix_slice16": 320, "overlap_add": 0, "masked_mix_s
 # host switch eval: 2 episodes x 100 steps x 2 (B=1), either policy.
 HOST_SWITCH_EVAL_LAUNCHES = {"masked_mix_slice16": 400, "overlap_add": 0,
                              "masked_mix_slice16_bwd": 0}
+# phase 8o: graphs only (points.txt + graph.pkl, no RIRs) of 3 grid scenes
+# of V = 1,024 (Matterport's graphs hold 100-1,000 nodes a scene), and 8
+# far-target episodes a scene, whose start check looks up a BFS row from
+# every node
+GRAPH_FIXTURE = dict(num_scenes=3, rows=32, cols=32, episodes=8)
 # pretrain: 3 epochs x (256 // 64 = 4 train steps + 1 val and 1
 # nonoverlapping-val batch of 64) = 18, one in the bin2mono encoder each;
 # its masks enter detached (the JAX package's stop_gradient), and the
@@ -431,6 +448,73 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def walker_build():
+    """Build the C++ graph walker (move2hear_tpu_torch/native/) from the
+    checkout's source with the host compiler. Returns (compiler command,
+    its version line, build seconds)."""
+    from move2hear_tpu_torch.native import binding
+
+    lib = binding.library_path()
+    if os.path.exists(lib):
+        os.remove(lib)  # always build from the checkout's source
+    _, secs = binding.build()
+    cxx = binding.compiler()
+    version = subprocess.run([*cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+    return shlex.join(cxx), (version or ["version unknown"])[0], secs
+
+
+@contextlib.contextmanager
+def walker_watch():
+    """While the block runs, record every scene ``GraphScene.from_files``
+    loads and every ``build_device_scene`` call: its seconds and, per
+    scene, V and whether the C++ walker served it."""
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.env.scene import GraphScene
+
+    seen = {"loaded": [], "built": []}
+    load, build = GraphScene.__dict__["from_files"], de.build_device_scene
+
+    def from_files(cls, *args, **kwargs):
+        scene = load.__func__(cls, *args, **kwargs)
+        seen["loaded"].append(scene)
+        return scene
+
+    def build_device_scene(scenes, device):
+        t0 = time.perf_counter()
+        out = build(scenes, device)
+        seen["built"].append((time.perf_counter() - t0, [
+            (s.num_nodes, s._native is not None) for s in de._scene_list(scenes)]))
+        return out
+
+    GraphScene.from_files, de.build_device_scene = classmethod(from_files), build_device_scene
+    try:
+        yield seen
+    finally:
+        GraphScene.from_files, de.build_device_scene = load, build
+
+
+def report_walker(label: str, seen, card: str):
+    """Print which scenes of a walker_watch the C++ walker served; fail if
+    a scene from_files loaded, or one of NATIVE_MIN_NODES or more that
+    build_device_scene stacked, went without it."""
+    from move2hear_tpu_torch.env.device_env import NATIVE_MIN_NODES
+
+    loaded = seen["loaded"]
+    if any(s._native is None for s in loaded):
+        fail(f"{label}: a scene from_files loaded moves without the C++ walker")
+    parts = [f"{len(loaded)} of {len(loaded)} scenes from_files loaded"] if loaded else []
+    for secs, scenes in seen["built"]:
+        if any(v >= NATIVE_MIN_NODES and not native for v, native in scenes):
+            fail(f"{label}: build_device_scene took the Python BFS for a scene of "
+                 f"{NATIVE_MIN_NODES} nodes or more: {scenes}")
+        served = sum(native for _, native in scenes)
+        parts.append(f"build_device_scene {served} of {len(scenes)} scenes (V = "
+                     f"{sorted({v for v, _ in scenes})}) in {secs:.3f} s")
+    print(f"{label}: the C++ graph walker served " + ("; ".join(parts) or "no scene")
+          + f" (host seconds, {card})", flush=True)
 
 
 def on_card(torch, array, offset: int):
@@ -987,14 +1071,16 @@ def scale_train_phase(torch, kernels, card, run_dir, device="cuda", opts=(),
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    trainer = PPOTrainer(cfg, bundle=bundle, device=device)
-    trainer.train()
+    with walker_watch() as seen:
+        trainer = PPOTrainer(cfg, bundle=bundle, device=device)
+        trainer.train()
     if on_cuda:
         torch.cuda.synchronize()
     counts = path_counts(kernels, launches)
     wall = time.perf_counter() - t0
     if counts != launches:
         fail(f"scale-train-path kernel launches {counts}, expected {launches}")
+    report_walker("scale-train", seen, card)
     if trainer._rir_mode != "sub":
         fail(f"scale-train: the gate chose {trainer._rir_mode!r}, not the RIR sub-banks")
     cycles, sub = trainer.cycle_log, trainer._sub_bank
@@ -1375,8 +1461,9 @@ def host_train_phase(torch, kernels, card, run_dir, fixture_opts, device="cuda",
     del bundle
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    trainer = port_main(["--run-type", "train", "--exp-config", HOST_TRAIN_EXP, "--model-dir",
-                         run_dir, "--device", device, *argv])
+    with walker_watch() as seen:
+        trainer = port_main(["--run-type", "train", "--exp-config", HOST_TRAIN_EXP, "--model-dir",
+                             run_dir, "--device", device, *argv])
     if device == "cuda":
         torch.cuda.synchronize()
     counts = path_counts(kernels, launches)
@@ -1387,6 +1474,7 @@ def host_train_phase(torch, kernels, card, run_dir, fixture_opts, device="cuda",
         fail(f"host-train-path kernel launches {counts}, expected {launches}")
     if trainer.vector_env != "ProcessVectorEnv":
         fail(f"host-train stepped its envs in {trainer.vector_env}, not ProcessVectorEnv")
+    report_walker("host-train", seen, card)  # the forked workers inherit the walker
     log = trainer.cycle_log
     if len(log) != cycles:
         fail(f"host-train ran {len(log)} cycles, expected {cycles}")
@@ -1435,9 +1523,11 @@ def host_eval_phase(torch, kernels, card, run_dir, fixture_opts, ckpt, switch_ck
     ):
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
-        ev = port_main(["--run-type", "eval", "--exp-config", exp, "--model-dir",
-                        os.path.join(run_dir, label), "--device", device, "EVAL_CKPT_PATH_DIR",
-                        path, "EVAL_EPISODE_COUNT", str(n), *fixture_opts, *opts])
+        with walker_watch() as seen:
+            ev = port_main(["--run-type", "eval", "--exp-config", exp, "--model-dir",
+                            os.path.join(run_dir, label), "--device", device,
+                            "EVAL_CKPT_PATH_DIR", path, "EVAL_EPISODE_COUNT", str(n),
+                            *fixture_opts, *opts])
         if device == "cuda":
             torch.cuda.synchronize()
         counts = path_counts(kernels, want)
@@ -1453,6 +1543,7 @@ def host_eval_phase(torch, kernels, card, run_dir, fixture_opts, ckpt, switch_ck
                 fail(f"{label}: aggregate {k} missing or not finite: {agg.get(k)}")
         if tm["episodes"] != n:
             fail(f"{label}: {tm['episodes']} episodes, expected {n}")
+        report_walker(label, seen, card)
         phase(label, t0, (
             f"{tm['episodes']} episodes x {tm['env_steps'] // n} steps on the file-backed fixture: "
             f"{tm['env_steps'] / tm['loop_s']:.1f} env-steps/s over the episode loop "
@@ -1469,7 +1560,8 @@ HOST_PARITY_L2_TOL = 1e-4   # relative, per-step STFT-L2 (the CPU reads 1.1e-7)
 HOST_PARITY_SI_TOL = 0.05   # dB, per-step SI-SDR above -40 dB (the CPU reads 1.0e-5)
 
 
-def host_parity_phase(torch, run_dir, fixture_opts, ckpt, device="cuda", opts=(), scenes=2):
+def host_parity_phase(torch, run_dir, fixture_opts, ckpt, device="cuda", opts=(), scenes=2,
+                      card="cpu"):
     """Phase 8h: with TF32 off and deterministic actions, the host evaluator
     against the device evaluator on the same fixture episodes (the first
     `scenes` scenes, every episode): per episode, keyed by (scene, episode
@@ -1490,16 +1582,19 @@ def host_parity_phase(torch, run_dir, fixture_opts, ckpt, device="cuda", opts=()
         torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(HOST_EVAL_EXP, ["RL.PPO.deterministic_eval", "True", *fixture_opts, *opts],
                      run_dir, "eval")
-    full = bundle_from_config(cfg.TASK_CONFIG, max_rir_length=cfg.TPU.MAX_RIR_LENGTH)
-    bundle = full.for_scenes(sorted(full.scenes)[:scenes])
-    n = len(bundle.episodes)
     dumps, actions = [], []
-    for i, evaluate in enumerate((evaluate_checkpoint, evaluate_checkpoint_device)):
-        acts = {}
-        evaluate(cfg, ckpt, i, bundle=bundle, episode_count=n, device=device, actions_out=acts)
-        with open(os.path.join(run_dir, f"eval_metrics_ckpt_{i}.pkl"), "rb") as f:
-            dumps.append(pickle.load(f))
-        actions.append(acts)
+    with walker_watch() as seen:
+        full = bundle_from_config(cfg.TASK_CONFIG, max_rir_length=cfg.TPU.MAX_RIR_LENGTH)
+        bundle = full.for_scenes(sorted(full.scenes)[:scenes])
+        n = len(bundle.episodes)
+        for i, evaluate in enumerate((evaluate_checkpoint, evaluate_checkpoint_device)):
+            acts = {}
+            evaluate(cfg, ckpt, i, bundle=bundle, episode_count=n, device=device,
+                     actions_out=acts)
+            with open(os.path.join(run_dir, f"eval_metrics_ckpt_{i}.pkl"), "rb") as f:
+                dumps.append(pickle.load(f))
+            actions.append(acts)
+    report_walker("host-parity", seen, card)
     host, dev = dumps
     if sorted(actions[0]) != sorted(actions[1]) or len(actions[0]) != n:
         fail(f"host-parity: episodes differ: {sorted(actions[0])} vs {sorted(actions[1])}")
@@ -2605,6 +2700,92 @@ def bf16_host_eval_phase(torch, kernels, card, run_dir, ckpt, device="cuda", opt
     return counts
 
 
+def graph_phase(torch, card, run_dir, built, device="cuda", fixture=GRAPH_FIXTURE):
+    """Phase 8o: the C++ graph walker (built in phase 2: `built` is its
+    compiler, version and seconds) on GRAPH_FIXTURE's graphs, written by
+    env/layout.py: ``GraphScene.from_files``, the far-target episode checks
+    (``generate_episodes``) and ``build_device_scene`` timed on the walker
+    and on the Python path (the same scenes without it, build_device_scene's
+    NATIVE_MIN_NODES raised above V); the device tables, the episodes and
+    ``forward_neighbor`` at every node and 8 orientations must be equal.
+    (`device` and `fixture` let a rehearsal run it small on the CPU.)"""
+    import dataclasses
+
+    import move2hear_tpu_torch.env.device_env as de
+    from move2hear_tpu_torch.env.episodes import generate_episodes
+    from move2hear_tpu_torch.env.layout import write_scene_graph
+    from move2hear_tpu_torch.env.micro_scene import DEFAULT_SOUNDS
+    from move2hear_tpu_torch.env.scene import GraphScene
+
+    t0 = time.perf_counter()
+    meta = os.path.join(run_dir, "graphs")
+    names = [f"graph{i:02d}" for i in range(fixture["num_scenes"])]
+    nbytes = sum(write_scene_graph(meta, GraphScene.grid(n, fixture["rows"], fixture["cols"]))
+                 for n in names)
+    v = fixture["rows"] * fixture["cols"]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def run(walker: bool):
+        secs = {}
+        t = time.perf_counter()
+        scenes = {n: GraphScene.from_files(meta, n) for n in names}
+        secs["from_files"] = time.perf_counter() - t
+        if not walker:  # the same scenes on the Python path
+            scenes = {n: GraphScene(n, s.positions, s.neighbors, s.grid_size)
+                      for n, s in scenes.items()}
+        t = time.perf_counter()
+        eps = [generate_episodes(scenes[n], DEFAULT_SOUNDS, fixture["episodes"],
+                                 near_target=False, seed=SEED + i, esc_sounds=("esc",)).episodes
+               for i, n in enumerate(names)]
+        secs["episode checks"] = time.perf_counter() - t
+        limit = de.NATIVE_MIN_NODES
+        de.NATIVE_MIN_NODES = limit if walker else v + 1
+        try:
+            t = time.perf_counter()
+            dev = de.build_device_scene(scenes, device)
+            sync()
+            secs["build_device_scene"] = time.perf_counter() - t
+        finally:
+            de.NATIVE_MIN_NODES = limit
+        if any((s._native is not None) != walker for s in scenes.values()):
+            fail(f"graph-walker: the {'walker' if walker else 'Python'} route's scenes "
+                 f"{'lack' if walker else 'carry'} the walker")
+        return scenes, eps, dev, secs
+
+    phase("graph-walker", t0, f"{len(names)} scenes of V = {v} written ({nbytes / 1e6:.3f} MB "
+                              f"of points.txt + graph.pkl); walker built by {built[0]} "
+                              f"({built[1]}) in {built[2]:.3f} s in phase 2")
+    scenes, eps, dev, fast = run(walker=True)
+    py_scenes, py_eps, py_dev, slow = run(walker=False)
+    for field in dataclasses.fields(dev):
+        a, b = getattr(dev, field.name), getattr(py_dev, field.name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"graph-walker: build_device_scene's {field.name} differs between the walker "
+                 "and the Python path")
+    if dev.dist.dtype != torch.int64 or int(dev.dist.min()) < -1:
+        fail(f"graph-walker: dist {dev.dist.dtype}, min {int(dev.dist.min())}")
+    if [[dataclasses.astuple(e) for e in es] for es in eps] != \
+            [[dataclasses.astuple(e) for e in es] for es in py_eps]:
+        fail("graph-walker: the far-target episodes differ between the walker and the Python path")
+    moves = 0
+    for n in names:
+        for node in range(v):
+            for orientation in range(0, 360, 45):
+                a = scenes[n].forward_neighbor(node, orientation)
+                if a != py_scenes[n].forward_neighbor(node, orientation):
+                    fail(f"graph-walker: {n} forward_neighbor({node}, {orientation}) differs")
+                moves += a != node
+    total = {k: sum(d.values()) for k, d in (("walker", fast), ("python", slow))}
+    phase("graph-walker", t0, (
+        f"dist {tuple(dev.dist.shape)} and every other table equal, {sum(map(len, eps))} "
+        f"far-target episodes equal, forward_neighbor equal at {len(names) * v * 8} (node, "
+        f"orientation) pairs ({moves} moves); host seconds, walker against Python: " + ", ".join(
+            f"{k} {fast[k]:.4f} / {slow[k]:.4f}" for k in fast)
+        + f"; in all {total['walker']:.4f} / {total['python']:.4f} s = "
+        f"{total['python'] / total['walker']:.1f}x ({card})"
+    ))
+
+
 def host_phases(torch, kernels, card, run_dir, pretrained, switch_ckpt):
     """Phases 8e-8h in the run directory; the fixture is removed after them.
     Returns the host paths' launch counts by path."""
@@ -2616,7 +2797,8 @@ def host_phases(torch, kernels, card, run_dir, pretrained, switch_ckpt):
         eval_counts, switch_counts = host_eval_phase(
             torch, kernels, card, os.path.join(run_dir, "host_eval"), fixture_opts, ckpt,
             switch_ckpt)
-        host_parity_phase(torch, os.path.join(run_dir, "host_parity"), fixture_opts, ckpt)
+        host_parity_phase(torch, os.path.join(run_dir, "host_parity"), fixture_opts, ckpt,
+                          card=card)
     finally:
         shutil.rmtree(layout, ignore_errors=True)
     return {"host_train": train_counts, "host_eval": eval_counts,
@@ -2660,6 +2842,10 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     phase("build", t0, f"{len(build.SOURCES)} CUDA sources built by nvcc in {secs:.2f} s, "
                        f"{len(build.SIGNATURES)} launchers bound")
+    t0 = time.perf_counter()
+    walker = walker_build()
+    phase("build", t0, f"the C++ graph walker (move2hear_tpu_torch/native/m2h_native.cc) built "
+                       f"by {walker[0]} ({walker[1]}) in {walker[2]:.3f} s")
 
     rows = time_phase(torch, kernels, check_phase(torch, kernels))
     run_dir = os.path.join(REPO, "_smoke_run")
@@ -2721,6 +2907,7 @@ def main():
               f"{bench_stats['rate']:.1f} in this run; peak device memory allocated "
               f"{fused_bench['peak_gb']:.2f} GB against {bench_stats['peak_gb']:.2f} ({card})",
               flush=True)
+        graph_phase(torch, card, run_dir, walker)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     train_parity_phase(torch)

@@ -136,7 +136,16 @@ def _scene_list(scenes) -> list:
     return [scenes[k] for k in sorted(scenes)]
 
 
+# scenes of this many nodes or more fill their all-pairs table through the
+# C++ graph walker (move2hear_tpu/env/device_env.py:146-157's threshold)
+NATIVE_MIN_NODES = 64
+
+
 def build_device_scene(scenes, device) -> DeviceScene:
+    """The scenes' graphs stacked on the device. The all-pairs BFS table of
+    a scene of NATIVE_MIN_NODES or more (V^2 steps, the scene build's hot
+    spot) comes from the C++ walker, attached here if the scene has none;
+    smaller scenes without one take the Python BFS."""
     scene_list = _scene_list(scenes)
     v = max(s.num_nodes for s in scene_list)
     max_deg = max(max((len(ns) for ns in s.neighbors), default=1) for s in scene_list)
@@ -153,7 +162,14 @@ def build_device_scene(scenes, device) -> DeviceScene:
             for j, nb in enumerate(ns):
                 neighbors[si, i, j] = nb
                 edge_dirs[si, i, j] = scene.edge_direction(i, nb)
-        dist[si, :vs, :vs] = np.stack([scene.bfs(i) for i in range(vs)])
+        if scene._native is None and vs >= NATIVE_MIN_NODES:
+            scene.attach_native()
+        if scene._native is not None:
+            idx = np.arange(vs, dtype=np.int32)
+            dist[si, :vs, :vs] = scene._native.geodesic_batch(
+                np.repeat(idx, vs), np.tile(idx, vs)).reshape(vs, vs)  # int32 -> int64, -1 kept
+        else:
+            dist[si, :vs, :vs] = np.stack([scene.bfs(i) for i in range(vs)])
         grid_size[si] = scene.grid_size
     t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
     return DeviceScene(

@@ -52,6 +52,21 @@ def _rir(rng, dist: int, azimuth: int, rir_length: int) -> np.ndarray:
     return rir
 
 
+def write_scene_graph(meta_dir: str, scene: GraphScene) -> int:
+    """Write `scene`'s ``points.txt`` and ``graph.pkl`` under
+    ``{meta_dir}/{scene.name}/`` as SoundSpaces ships them. Returns the
+    bytes written."""
+    meta = os.path.join(meta_dir, scene.name)
+    os.makedirs(meta, exist_ok=True)
+    # points.txt holds (index, x, y, z) before the mp3d transform
+    # (utils.py:23-27), which maps them to (x, z - 1.5, -y)
+    lines = [f"{i}\t{p[0]}\t{-p[2]}\t{p[1] + 1.5}" for i, p in enumerate(scene.positions)]
+    with open(os.path.join(meta, "points.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_graph_pickle(os.path.join(meta, "graph.pkl"), scene.positions, scene.neighbors)
+    return sum(os.path.getsize(os.path.join(meta, f)) for f in ("points.txt", "graph.pkl"))
+
+
 def write_soundspaces_layout(
     root: str,
     num_scenes: int = 2,
@@ -82,15 +97,7 @@ def write_soundspaces_layout(
     files = 0
 
     for name, scene in scenes.items():
-        meta = os.path.join(root, "metadata", "mp3d", name)
-        os.makedirs(meta, exist_ok=True)
-        # points.txt holds (index, x, y, z) before the mp3d transform
-        # (utils.py:23-27), which maps them to (x, z - 1.5, -y)
-        lines = [f"{i}\t{p[0]}\t{-p[2]}\t{p[1] + 1.5}" for i, p in enumerate(scene.positions)]
-        with open(os.path.join(meta, "points.txt"), "w") as f:
-            f.write("\n".join(lines) + "\n")
-        write_graph_pickle(os.path.join(meta, "graph.pkl"), scene.positions, scene.neighbors)
-        sizes["metadata"] += sum(os.path.getsize(os.path.join(meta, f)) for f in os.listdir(meta))
+        sizes["metadata"] += write_scene_graph(os.path.join(root, "metadata", "mp3d"), scene)
         files += 2
         for az in AZIMUTHS:
             for r in range(v):

@@ -7,7 +7,16 @@ env (env/device_env.py) and ``forward_neighbor`` (the host simulator,
 env/sim.py) apply the movement rule to them: the first adjacency-ordered
 neighbor whose direction equals the orientation, or, for a diagonal edge,
 differs from it by exactly 45 degrees. Geodesics come from a breadth-first
-search in Python.
+search.
+
+Both run in Python (``forward_neighbor``, ``bfs``) or, once
+``attach_native`` has attached it, in the C++ graph walker
+(``native/binding.py``), as the JAX package routes them: every scene that
+``from_files`` loads, and every scene of 64 nodes or more that
+``build_device_scene`` stacks, takes the walker. The Python versions stay
+as the plain ones: grids and micro-scenes below 64 nodes use them, and the
+tests hold the walker to them. A walker that fails to build or load
+raises.
 
 ``GraphScene.from_files`` reads the SoundSpaces layout,
 ``{META_DIR}/{scene}/points.txt`` and ``graph.pkl``, a pickled
@@ -107,6 +116,7 @@ class GraphScene:
         self.neighbors = [list(ns) for ns in neighbors]
         self.grid_size = grid_size
         self._dist_cache: Dict[int, np.ndarray] = {}
+        self._native = None  # the C++ walker, once attach_native() has run
 
     @property
     def num_nodes(self) -> int:
@@ -121,6 +131,8 @@ class GraphScene:
     def forward_neighbor(self, node: int, orientation: int) -> int:
         """The first neighbor (adjacency order) matching the facing
         direction; the node itself if none (the agent bumps into a wall)."""
+        if self._native is not None:
+            return self._native.forward_neighbor(node, orientation)
         for nb in self.neighbors[node]:
             direction = self.edge_direction(node, nb)
             if direction not in CARDINALS:
@@ -144,6 +156,8 @@ class GraphScene:
         return dist
 
     def shortest_path_steps(self, a: int, b: int) -> int:
+        if self._native is not None:
+            return self._native.shortest_path_steps(a, b)
         if a not in self._dist_cache:
             self._dist_cache[a] = self.bfs(a)
         return int(self._dist_cache[a][b])
@@ -156,6 +170,16 @@ class GraphScene:
         pa, pb = self.positions[a], self.positions[b]
         return float(np.hypot(pa[0] - pb[0], pa[2] - pb[2]))
 
+    def attach_native(self):
+        """Route movement and geodesics through the C++ graph walker, built
+        at first use; raises if it cannot be built or loaded. Returns the
+        walker."""
+        if self._native is None:
+            from move2hear_tpu_torch.native.binding import NativeGraph
+
+            self._native = NativeGraph(self.positions, self.neighbors)
+        return self._native
+
     @classmethod
     def from_files(
         cls,
@@ -167,7 +191,8 @@ class GraphScene:
     ) -> "GraphScene":
         """Load points.txt + graph.pkl in the SoundSpaces layout
         (habitat_audio/utils.py:7-63). The graph's ``point`` attributes
-        override the transformed points where present."""
+        override the transformed points where present. The scene moves and
+        measures through the C++ graph walker."""
         parent = os.path.join(meta_dir, scene)
         points_data = np.loadtxt(os.path.join(parent, "points.txt"), delimiter="\t", ndmin=2)
         if scene_dataset == "mp3d":
@@ -185,7 +210,9 @@ class GraphScene:
         for i in range(len(pts)):
             if "point" in graph.nodes[i]:
                 pts[i] = graph.nodes[i]["point"]
-        return cls(scene, pts, neighbors, grid_size=grid_size)
+        out = cls(scene, pts, neighbors, grid_size=grid_size)
+        out.attach_native()
+        return out
 
     @classmethod
     def grid(

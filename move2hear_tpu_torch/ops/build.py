@@ -72,11 +72,16 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
+def hashed_library(stem: str, src: str, command: Sequence[str]) -> str:
+    """``_build/lib<stem>-<hash>.so`` for the source `src` compiled by
+    `command` (compiler and flags): the hash covers both."""
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+        digest = hashlib.sha256(f.read() + " ".join(command).encode())
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def library_path(name: str) -> str:
+    return hashed_library(name, os.path.join(CSRC_DIR, name + ".cu"), NVCC_FLAGS)
 
 
 def build_all(names: Sequence[str] = SOURCES) -> float:
